@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root, on a machine with a GPU
+
+Phases (any failure exits non-zero and prints no result line):
+  1. the card's name and power limit (nvidia-smi);
+  2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
+  3. each kernel against its plain PyTorch version on the card, at 256^2
+     and 1920x1080, on BoxScene bounce-0 reflection rays;
+  4. one whole headline frame with the kernels against the plain path;
+  5. the main path: Renderer.render_frame, OFFLINE mode, 1920x1080,
+     PTConfig.boxscene_headline(), 1 warm-up + 8 timed frames, with the
+     kernels' launch counts read around it;
+  6. a torch.profiler report of two more main-path frames (a report,
+     never a gate);
+then one JSON line of per-kernel numbers, the card line again, and the
+last line {"ok": true, "device": {...}}.
+
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+
+H_FULL, W_FULL = 1080, 1920
+PROBE = [0.05, 0.06, 0.08]
+TIMED_FRAMES = 8
+KERNELS = {
+    "schedule_pack": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/schedule_pack.cu",
+        replaces="unitysspathtracingurp_tpu/ops/fused_schedule.py:639",
+    ),
+    "resolve_rounds": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/resolve_rounds.cu",
+        replaces="unitysspathtracingurp_tpu/ops/pathtrace_hiz.py:601",
+    ),
+}
+
+
+class GateError(RuntimeError):
+    pass
+
+
+def gate(ok: bool, what: str):
+    if not ok:
+        raise GateError(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the hiz march through the kernels' plain PyTorch versions."""
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule, pathtrace_hiz
+
+    saved = pathtrace_hiz.schedule_pack, pathtrace_hiz.resolve_rounds
+    pathtrace_hiz.schedule_pack = fused_schedule.schedule_pack_ref
+    pathtrace_hiz.resolve_rounds = pathtrace_hiz.resolve_rounds_ref
+    try:
+        yield
+    finally:
+        pathtrace_hiz.schedule_pack, pathtrace_hiz.resolve_rounds = saved
+
+
+def boxscene(h, w, dev):
+    from unitysspathtracingurp_tpu_torch.models import fixtures, scene
+
+    cam = fixtures.box_scene_camera(h, w, device=dev)
+    gb = fixtures.rasterize_gbuffers(scene.build_box_scene(), cam, h, w, device=dev)
+    return gb, cam
+
+
+def march_inputs(gb, cam):
+    """Bounce-0 reflection rays tilted as tests/test_fused_schedule.py:36-61."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.camera import (
+        linear_eye_depth, pixel_uv, world_from_uv_depth,
+    )
+
+    h, w = gb.height, gb.width
+    uv = pixel_uv(h, w, device=gb.device)
+    pos_ws = world_from_uv_depth(cam.inv_view_proj, uv, gb.depth)
+    view_dir = pos_ws - cam.position
+    view_dir = view_dir / torch.linalg.norm(view_dir, dim=-1, keepdim=True)
+    n = gb.normal
+    refl = view_dir - 2.0 * (view_dir * n).sum(-1, keepdim=True) * n
+    tilt = torch.stack([torch.cos(uv[..., 0] * 7.0), torch.sin(uv[..., 1] * 5.0),
+                        torch.cos(uv[..., 0] * 3.0)], -1)
+    d = refl + 0.3 * tilt
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    return dict(
+        origin=pos_ws + n * 1e-4, d=d, alive=gb.depth != 0.0, view_dir=view_dir,
+        scene_dist=linear_eye_depth(gb.depth, cam.near, cam.far),
+    )
+
+
+def check_kernels(h, w, dev, timing: bool):
+    """Phase 3 at one size: K1 and R1 against their plain versions."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_depth_tiles
+
+    gb, cam = boxscene(h, w, dev)
+    x = march_inputs(gb, cam)
+    cfg, settings = PTConfig(), PTSettings(maximum_steps=24, dithering=False)
+    tiles = build_depth_tiles(gb.depth, cam.near, cam.far)
+    n = h * w
+    large_step = settings.step_size + (20.0 - settings.step_size) * x["scene_dist"] * 0.001
+    is_back = ((x["d"] * -x["view_dir"]).sum(-1) > 0.0).reshape(n)
+    scalars = fs.schedule_scalars(cam)
+    k1_args = (x["origin"].reshape(n, 3), x["d"].reshape(n, 3),
+               torch.zeros(n, device=dev), large_step.reshape(n),
+               x["alive"].reshape(n), is_back, tiles.mini_table, scalars)
+    k1_kw = dict(
+        gh=h, gw=w, minis_x=tiles.minis_x, s_max=24,
+        k=16, max_small_step=cfg.max_small_step, max_medium_step=cfg.max_medium_step,
+        small_step_size=cfg.small_step_size, medium_step_size=cfg.medium_step_size,
+        marching_thickness=cfg.marching_thickness, step_growth=cfg.step_growth,
+        thickness_growth=cfg.thickness_growth,
+    )
+    got = fs.schedule_pack(*k1_args, **k1_kw)
+    ref = fs.schedule_pack_ref(*k1_args, **k1_kw)
+    torch.cuda.synchronize()
+    same_n = (got[3] == ref[3]).float().mean().item()
+    same_scode = got[1] == ref[1]
+    scode_eq = same_scode.float().mean().item()
+    d_lcum = (torch.div(got[2], 4096, rounding_mode="floor")
+              - torch.div(ref[2], 4096, rounding_mode="floor")).abs()[same_scode]
+    d_lhd = (torch.remainder(got[2], 4096) - torch.remainder(ref[2], 4096)).abs()[same_scode]
+    k1_err = (got[0] - ref[0]).abs()[same_scode].max().item()
+    hist_codes = max(d_lcum.max().item(), d_lhd.max().item())
+    print(f"phase 3 K1 schedule_pack {w}x{h}: n_cand equal {same_n:.6f}, "
+          f"scode equal {scode_eq:.6f}, hist max code diff {hist_codes:.0f}, "
+          f"cum max abs err {k1_err:.3e}, lanes with candidates "
+          f"{(ref[3] > 0).float().mean().item():.4f}")
+    gate(same_n >= 0.9999 and scode_eq >= 0.9999, "K1 n_cand/scode agreement")
+    gate(hist_codes <= 1.0 and k1_err < 1e-5, "K1 hist/cum agreement")
+
+    r1_args = (*ref[:4], k1_args[0], k1_args[1], is_back, tiles.pair_table, scalars)
+    r1_kw = dict(gh=h, gw=w, pairs_x=tiles.pairs_x,
+                 n_rounds=ph.default_rounds(h, w), chain=cfg.hiz_chain, s_max=24)
+    res_k = ph.resolve_rounds(*r1_args, **r1_kw)
+    res_r = ph.resolve_rounds_ref(*r1_args, **r1_kw)
+    torch.cuda.synchronize()
+    march = [
+        ph.finalize(r.reshape(11, h, w), x["origin"], x["d"], is_back.reshape(h, w),
+                    cam, h, w)
+        for r in (res_k, res_r)
+    ]
+    hit_k, hit_r = march[0].hit, march[1].hit
+    hit_agree = (hit_k == hit_r).float().mean().item()
+    both = hit_k & hit_r
+    uv_agree = ((march[0].uv - march[1].uv).abs().amax(-1) < 1e-6)[both].float().mean().item()
+    r1_err = (march[0].distance - march[1].distance).abs()[both].max().item()
+    print(f"phase 3 R1 resolve_rounds {w}x{h}: hit agreement {hit_agree:.6f}, "
+          f"uv agreement {uv_agree:.6f}, distance max abs err {r1_err:.3e}, "
+          f"hit fraction {hit_r.float().mean().item():.4f}")
+    gate(hit_agree >= 0.9995 and uv_agree >= 0.999, "R1 hit/uv agreement")
+
+    out = {"schedule_pack": {"max_abs_err": k1_err}, "resolve_rounds": {"max_abs_err": r1_err}}
+    if timing:
+        out["schedule_pack"]["ms"] = cuda_ms(lambda: fs.schedule_pack(*k1_args, **k1_kw), 20)
+        out["schedule_pack"]["plain_ms"] = cuda_ms(
+            lambda: fs.schedule_pack_ref(*k1_args, **k1_kw), 3)
+        out["resolve_rounds"]["ms"] = cuda_ms(lambda: ph.resolve_rounds(*r1_args, **r1_kw), 20)
+        out["resolve_rounds"]["plain_ms"] = cuda_ms(
+            lambda: ph.resolve_rounds_ref(*r1_args, **r1_kw), 3)
+    return out
+
+
+def headline_settings():
+    from unitysspathtracingurp_tpu_torch.config import DenoiserType, PTSettings
+
+    return PTSettings(maximum_depth=4, samples_per_pixel=1, maximum_steps=24,
+                      dithering=False, denoiser=DenoiserType.OFFLINE,
+                      maximum_samples=512)
+
+
+def check_frame(h, w, dev):
+    """Phase 4: one headline frame, kernels vs the plain path."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
+    from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
+
+    gb, cam = boxscene(h, w, dev)
+    probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+    s, cfg = headline_settings(), PTConfig.boxscene_headline()
+    fast = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99)
+    with plain_kernels():
+        plain = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99)
+    torch.cuda.synchronize()
+    gate(bool(torch.isfinite(fast).all()), "frame has non-finite values")
+    non_sky = (gb.depth != 0.0).cpu().numpy()
+    rel, within = frame_agreement(fast.cpu().numpy(), plain.cpu().numpy(), non_sky)
+    print(f"phase 4 frame {w}x{h}: pooled relative RMSE {rel:.3e}, "
+          f"non-sky pixels within 1e-3 {within:.6f}")
+    gate(rel < 0.01 and within >= 0.99, "frame agreement")
+
+
+def main_path(dev, card):
+    """Phase 5: the Renderer at 1080p, offline, headline config."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+    from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
+    from unitysspathtracingurp_tpu_torch.models.renderer import Renderer
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.utils.metrics import mrays_per_sec
+
+    gb, cam = boxscene(H_FULL, W_FULL, dev)
+    s = headline_settings()
+    r = Renderer(s, H_FULL, W_FULL, cfg=PTConfig.boxscene_headline(),
+                 probes=ProbeSet(probe0=constant_probe(PROBE)), device=dev)
+    LAUNCHES.clear()
+    per_frame = []
+    image = r.render_frame(gb, cam)  # warm-up: builds the depth tiles
+    torch.cuda.synchronize()
+    per_frame.append(dict(LAUNCHES))
+    times = []
+    for _ in range(TIMED_FRAMES):
+        t0 = time.perf_counter()
+        image = r.render_frame(gb, cam)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_frame.append(dict(LAUNCHES))
+    dt = sum(times) / TIMED_FRAMES
+    launches = dict(LAUNCHES)
+    for i, counts in enumerate(per_frame, start=1):
+        gate(all(counts.get(name, 0) == 4 * i for name in KERNELS),
+             f"launch counts after frame {i}: {counts}")
+    gate(r.sample == 1 + TIMED_FRAMES, f"sample counter {r.sample}")
+    gate(tuple(image.shape) == (H_FULL, W_FULL, 3), "image shape")
+    gate(bool(torch.isfinite(image).all()), "accumulated image not finite")
+    gate(float(r.offline_state.accum.mean()) > 0.0, "accumulated image is black")
+    sky = float((gb.depth == 0.0).float().mean())
+    rate = mrays_per_sec(H_FULL, W_FULL, 1, s.maximum_depth, dt, sky)
+    print(f"phase 5 main path Renderer.render_frame OFFLINE {W_FULL}x{H_FULL} "
+          f"4 bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
+          f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s, "
+          f"samples {r.sample}, launches {launches} [{card}]")
+    profile_frames(r, gb, cam, card)
+    return launches
+
+
+def profile_frames(r, gb, cam, card, frames=2):
+    """Device time by kernel over ``frames`` more main-path frames
+    (torch.profiler, CUPTI). Reports; never fails the smoke."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(frames):
+                r.render_frame(gb, cam)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name = {}
+        for e in prof.events():  # device-side activity only: kernels, copies
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t, c = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+        rows = [(t, c, name) for name, (t, c) in by_name.items()]
+    except Exception as e:  # the profiler is a report, not a gate
+        print(f"profile: torch.profiler failed: {e!r}")
+        return
+    busy = sum(t for t, _, _ in rows)
+    if busy == 0:
+        print("profile: torch.profiler saw no device time")
+        return
+    launches = sum(c for _, c, _ in rows)
+    print(f"profile of {frames} main-path frames: wall {wall_us / frames / 1e3:.3f} ms/frame, "
+          f"device busy {busy / frames / 1e3:.3f} ms/frame "
+          f"(idle share {1.0 - busy / wall_us:.3f}), {launches / frames:.0f} "
+          f"device ops/frame [{card}]")
+    for t, c, key in sorted(rows, reverse=True)[:10]:
+        print(f"profile:   {t / frames / 1e3:8.3f} ms/frame {100.0 * t / busy:5.1f}% "
+              f"x{c // frames:<5d} {key[:90]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    try:
+        from unitysspathtracingurp_tpu_torch.kernels.build import load_library
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
+        return 2
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    load_library()
+    print(f"phase 2 kernels built and loaded in {time.perf_counter() - t0:.3f} s")
+
+    stats = {}
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        stats = check_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL))
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        check_frame(h, w, dev)
+    launches = main_path(dev, card)
+
+    rows = [
+        dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+             launches=launches.get(name, 0), **stats[name])
+        for name, meta in KERNELS.items()
+    ]
+    for row in rows:
+        print(f"kernel {row['name']} at the 1080p bounce-0 shape: {row['ms']:.4f} ms, "
+              f"plain PyTorch {row['plain_ms']:.4f} ms [{card}]")
+    print(json.dumps({"kernels": rows}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except GateError as e:
+        print(f"chip_smoke: gate failed: {e}", file=sys.stderr)
+        sys.exit(1)

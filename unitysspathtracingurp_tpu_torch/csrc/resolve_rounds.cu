@@ -1,0 +1,172 @@
+// R1: hiz resolve rounds.
+//
+// Replaces unitysspathtracingurp_tpu/ops/pathtrace_hiz.py run_rounds
+// (:601-843, dense rounds, plain layout), which the JAX package writes
+// in XLA: per round a 128-word row gather of the pointed candidate's
+// 32x8-px depth pair (row_gather, pallas_gather.py:260) plus one-hot
+// selects, priced for TPU gathers. The plain PyTorch version is
+// ops/pathtrace_hiz.py resolve_rounds_ref.
+//
+// Per lane, per round: link 0 is the candidate at `ptr`, link j the one
+// at ptr + j. Each link's position is re-derived as origin + cum * dir,
+// projected, and its texel's f16 raw depth is read as ONE u32 word
+// pair_table[pair * 128 + texel]. Hit rule: d <= 0, not sky, and
+// d >= -th or (back ray and the emulated binary search fits the step
+// budget). Link 0 is tested whenever valid; link j > 0 only if link
+// j-1 failed and it lies in link 0's 32x8-px window (pair == pair0);
+// ptr advances past every failed link. These rules decide which
+// candidates a round budget reaches, so they are kept exactly.
+//
+// What bounds it on an H100: scattered 4-byte reads. Each tested link
+// reads 12 B of slot fields (coalesced: slot rows are lane-major) and
+// one pair-table word at a data-dependent address; the pair table is
+// 4.2 MB at 1080p and fits in the 50 MB L2, so the scattered reads can
+// be served from L2 rather than device memory. Design: one thread per
+// lane, rounds and links as loops in registers, early exit when the
+// lane hits or runs out of candidates; the 11 per-lane resolve fields
+// are written once at the end as rows of an (11, N) f32 table.
+//
+// Numerics: --fmad=false and IEEE divides, as in schedule_pack.cu.
+
+#include <cuda_runtime.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float half_bits_to_float(uint32_t bits) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(bits & 0xFFFFu)));
+}
+
+__device__ __forceinline__ int pixel_index(float t, int size) {
+  int i = __float2int_rd(t * static_cast<float>(size));
+  return min(max(i, 0), size - 1);
+}
+
+__global__ void resolve_rounds_kernel(
+    const float* __restrict__ pk_cum, const float* __restrict__ pk_scode,
+    const float* __restrict__ pk_hist, const int32_t* __restrict__ n_cand,
+    const float* __restrict__ ray_pos, const float* __restrict__ ray_dir,
+    const uint8_t* __restrict__ is_back, const uint32_t* __restrict__ pair_table,
+    const float* __restrict__ scalars, float* __restrict__ out, int n, int k,
+    int gh, int gw, int pairs_x, int n_rounds, int chain, int s_max) {
+  __shared__ float s_m[18];
+  if (threadIdx.x < 18) s_m[threadIdx.x] = scalars[threadIdx.x];
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  float m[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) m[i] = s_m[i];
+  const float zz = s_m[16], zw = s_m[17];
+
+  const float ox = ray_pos[3 * lane], oy = ray_pos[3 * lane + 1], oz = ray_pos[3 * lane + 2];
+  const float dx = ray_dir[3 * lane], dy = ray_dir[3 * lane + 1], dz = ray_dir[3 * lane + 2];
+  const bool backray = is_back[lane] != 0;
+  const int nc = n_cand[lane];
+
+  bool hit = false;
+  float h_cum = 0.0f, h_diff = 0.0f, h_th = 0.0f, h_hitd = 0.0f;
+  float h_lcum = 0.0f, h_lhd = 0.0f;
+  int h_prev = 0, h_ixy = 0, prev_sidx = -1;
+  float prev_diff = 0.0f;
+  int ptr = 0;
+
+  for (int r = 0; r < n_rounds; ++r) {
+    if (hit || ptr >= nc) break;  // inactive lanes stay inactive
+    int pair0 = 0;
+    int adv = 0;
+    for (int j = 0; j < chain; ++j) {
+      const int s = ptr + j;
+      if (s >= nc) break;
+      const size_t o = static_cast<size_t>(s) * n + lane;
+      const float cd = pk_cum[o];
+      const float scode = pk_scode[o];
+      const float hist = pk_hist[o];
+      const float th = floorf(scode / 8192.0f) * 0.025f;
+      const float sbase = fmodf(scode, 8192.0f);
+      const int s_idx = static_cast<int>(fmodf(sbase, 65.0f));
+      const int p_idx = static_cast<int>(floorf(sbase / 65.0f)) - 1;
+      const float lcum = floorf(hist / 4096.0f) * 0.025f;
+      const float lhd = fmodf(hist, 4096.0f) * 0.025f;
+
+      const float px = ox + cd * dx, py = oy + cd * dy, pz = oz + cd * dz;
+      float cx = px * m[0] + py * m[1] + pz * m[2] + m[3];
+      float cy = px * m[4] + py * m[5] + pz * m[6] + m[7];
+      float cz = px * m[8] + py * m[9] + pz * m[10] + m[11];
+      float w = px * m[12] + py * m[13] + pz * m[14] + m[15];
+      if (fabsf(w) < 1e-12f) w = 1e-12f;
+      const float u = cx / w * 0.5f + 0.5f;
+      const float v = cy / w * 0.5f + 0.5f;
+      const float hitd = 1.0f / (cz / w * zz + zw);
+      const int ix = pixel_index(u, gw);
+      const int iy = pixel_index(v, gh);
+      const int txi = ix / 16;
+      const int pair = (iy / 8) * pairs_x + txi / 2;
+      const int texel = (iy % 8) * 16 + ix % 16;
+      if (j == 0) {
+        pair0 = pair;
+      } else if (pair != pair0) {
+        break;  // later links resolve only inside link 0's window
+      }
+      const uint32_t word = pair_table[static_cast<size_t>(pair) * 128 + texel];
+      const float d_raw = half_bits_to_float((txi & 1) ? (word >> 16) : word);
+      const float scene = 1.0f / (d_raw * zz + zw);
+      const bool is_sky = d_raw == 0.0f;
+      const float d = scene - hitd;
+      const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));
+      const bool budget_ok =
+          static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(s_max);
+      const bool in_window = (d >= -th) || (backray && budget_ok);
+      if ((d <= 0.0f) && in_window && !is_sky) {
+        hit = true;
+        h_cum = cd;
+        h_diff = d;
+        h_th = th;
+        h_hitd = hitd;
+        h_lcum = lcum;
+        h_lhd = lhd;
+        h_prev = p_idx;
+        h_ixy = iy * gw + ix;
+        break;
+      }
+      prev_diff = d;
+      prev_sidx = s_idx;
+      ++adv;
+    }
+    ptr += adv;
+  }
+  out[0 * static_cast<size_t>(n) + lane] = hit ? 1.0f : 0.0f;
+  out[1 * static_cast<size_t>(n) + lane] = h_cum;
+  out[2 * static_cast<size_t>(n) + lane] = h_diff;
+  out[3 * static_cast<size_t>(n) + lane] = h_th;
+  out[4 * static_cast<size_t>(n) + lane] = h_hitd;
+  out[5 * static_cast<size_t>(n) + lane] = h_lcum;
+  out[6 * static_cast<size_t>(n) + lane] = h_lhd;
+  out[7 * static_cast<size_t>(n) + lane] = static_cast<float>(h_prev);
+  out[8 * static_cast<size_t>(n) + lane] = static_cast<float>(h_ixy);
+  out[9 * static_cast<size_t>(n) + lane] = prev_diff;
+  out[10 * static_cast<size_t>(n) + lane] = static_cast<float>(prev_sidx);
+}
+
+}  // namespace
+
+extern "C" int sspt_resolve_rounds(
+    const void* pk_cum, const void* pk_scode, const void* pk_hist,
+    const void* n_cand, const void* ray_pos, const void* ray_dir,
+    const void* is_back, const void* pair_table, const void* scalars, void* out,
+    int n, int k, int gh, int gw, int pairs_x, int n_rounds, int chain,
+    int s_max, void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    const int blocks = (n + threads - 1) / threads;
+    resolve_rounds_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(pk_cum), static_cast<const float*>(pk_scode),
+        static_cast<const float*>(pk_hist), static_cast<const int32_t*>(n_cand),
+        static_cast<const float*>(ray_pos), static_cast<const float*>(ray_dir),
+        static_cast<const uint8_t*>(is_back), static_cast<const uint32_t*>(pair_table),
+        static_cast<const float*>(scalars), static_cast<float*>(out), n, k, gh, gw,
+        pairs_x, n_rounds, chain, s_max);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

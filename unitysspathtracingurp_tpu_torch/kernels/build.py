@@ -1,0 +1,116 @@
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, at first use, into ``build/kernels/``
+beside the package, under a name keyed on a hash of the sources and
+flags. The library is loaded with ``ctypes``; every entry point returns
+``cudaGetLastError()`` and ``check`` raises when it is not 0.
+
+``--fmad=false`` (and no ``--use_fast_math``) keeps each kernel on the
+same f32 operation chain as its plain PyTorch version: torch's
+elementwise ops round after every operation.
+
+``LAUNCHES`` counts kernel launches per wrapper; only the wrappers add
+to it, once per launch.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # pointers: ray_pos, ray_dir, dither, large_step, alive, is_back,
+    # mini_table, scalars, pk_cum, pk_scode, pk_hist, n_cand; then ints
+    # n, gh, gw, minis_x, n_mini_words, s_max, k, max_small, max_medium;
+    # floats small_step, medium_step, thickness, th_inc, step_growth,
+    # th_cap, texel_x, texel_y; stream.
+    "sspt_schedule_pack": [P] * 12 + [I] * 9 + [F] * 8 + [P],
+    # pointers: pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir,
+    # is_back, pair_table, scalars, out; ints n, k, gh, gw, pairs_x,
+    # n_rounds, chain, s_max; stream.
+    "sspt_resolve_rounds": [P] * 10 + [I] * 8 + [P],
+}
+
+
+def nvcc_path() -> str | None:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    return str(cand) if cand.exists() else None
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libsspt_kernels_{digest.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library.
+    Raises RuntimeError when nvcc is missing or the build fails."""
+    so = _library_path()
+    if not so.exists():
+        nvcc = nvcc_path()
+        if nvcc is None:
+            raise RuntimeError(
+                "nvcc not found (PATH, CUDA_HOME or /usr/local/cuda): the "
+                "CUDA kernels cannot be built"
+            )
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """The kernels take contiguous CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise RuntimeError(f"{name}: needs CUDA tensors on one device, got {t.device}")
+        if not t.is_contiguous():
+            raise RuntimeError(f"{name}: needs contiguous tensors")
+
+
+def stream_of(tensor):
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
