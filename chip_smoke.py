@@ -6,13 +6,18 @@
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card, at 256^2
-     and 1920x1080, on BoxScene bounce-0 reflection rays;
-  4. one whole headline frame with the kernels against the plain path;
-  5. the main path: Renderer.render_frame, OFFLINE mode, 1920x1080,
-     PTConfig.boxscene_headline(), 1 warm-up + 8 timed frames, with the
-     kernels' launch counts read around it;
-  6. a torch.profiler report of two more main-path frames (a report,
+  3. K1 and R1 against their plain PyTorch versions on the card, at 256^2
+     and 1920x1080, on BoxScene bounce-0 reflection rays; then K4 and
+     R1's dual mode against theirs on the glass box with the refraction +
+     backface tiles, with insideObject 0, 1 and 2 (every combo row);
+  4. one whole headline frame, and one whole dual frame, with the
+     kernels against the plain path;
+  5. the two main paths, each with the launch counts set to 0 just
+     before and read just after it: Renderer.render_frame, OFFLINE,
+     1920x1080, (a) the headline BoxScene with
+     PTConfig.boxscene_headline() and (b) the glass BoxScene with
+     refraction + DepthNormals thickness; 1 warm-up + timed frames;
+  6. a torch.profiler report of two more frames of each path (a report,
      never a gate);
 then one JSON line of per-kernel numbers, the card line again, and the
 last line {"ok": true, "device": {...}}.
@@ -30,7 +35,10 @@ import time
 
 H_FULL, W_FULL = 1080, 1920
 PROBE = [0.05, 0.06, 0.08]
-TIMED_FRAMES = 8
+TIMED_FRAMES = 6
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+STEP_OPS = 60  # f32 operations of one march step or one resolve link
 KERNELS = {
     "schedule_pack": dict(
         source="unitysspathtracingurp_tpu_torch/csrc/schedule_pack.cu",
@@ -39,6 +47,14 @@ KERNELS = {
     "resolve_rounds": dict(
         source="unitysspathtracingurp_tpu_torch/csrc/resolve_rounds.cu",
         replaces="unitysspathtracingurp_tpu/ops/pathtrace_hiz.py:601",
+    ),
+    "schedule_pack_dual": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/schedule_pack.cu",
+        replaces="unitysspathtracingurp_tpu/ops/fused_schedule.py:639",
+    ),
+    "resolve_rounds_dual": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/resolve_rounds.cu",
+        replaces="unitysspathtracingurp_tpu/ops/pathtrace_hiz.py:682",
     ),
 }
 
@@ -76,25 +92,41 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved: float, ops: float) -> dict:
+    """The least time for the work: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the hiz march through the kernels' plain PyTorch versions."""
     from unitysspathtracingurp_tpu_torch.ops import fused_schedule, pathtrace_hiz
 
-    saved = pathtrace_hiz.schedule_pack, pathtrace_hiz.resolve_rounds
+    names = ("schedule_pack", "resolve_rounds", "schedule_pack_dual", "resolve_rounds_dual")
+    saved = [getattr(pathtrace_hiz, n) for n in names]
     pathtrace_hiz.schedule_pack = fused_schedule.schedule_pack_ref
     pathtrace_hiz.resolve_rounds = pathtrace_hiz.resolve_rounds_ref
+    pathtrace_hiz.schedule_pack_dual = fused_schedule.schedule_pack_dual_ref
+    pathtrace_hiz.resolve_rounds_dual = pathtrace_hiz.resolve_rounds_dual_ref
     try:
         yield
     finally:
-        pathtrace_hiz.schedule_pack, pathtrace_hiz.resolve_rounds = saved
+        for n, fn in zip(names, saved):
+            setattr(pathtrace_hiz, n, fn)
 
 
-def boxscene(h, w, dev):
+def boxscene(h, w, dev, glass=False):
+    """BoxScene G-buffer + camera; ``glass``: the IOR-1.45 sphere and no
+    mirror, with the backface pass (the refraction configuration)."""
     from unitysspathtracingurp_tpu_torch.models import fixtures, scene
 
     cam = fixtures.box_scene_camera(h, w, device=dev)
-    gb = fixtures.rasterize_gbuffers(scene.build_box_scene(), cam, h, w, device=dev)
+    sc = (scene.build_box_scene(with_glass=True, with_mirror=False) if glass
+          else scene.build_box_scene())
+    gb = fixtures.rasterize_gbuffers(sc, cam, h, w, device=dev, with_backface=glass)
     return gb, cam
 
 
@@ -124,7 +156,7 @@ def march_inputs(gb, cam):
 
 
 def check_kernels(h, w, dev, timing: bool):
-    """Phase 3 at one size: K1 and R1 against their plain versions."""
+    """Phase 3, plain layout, at one size: K1 and R1 against their plain versions."""
     import torch
 
     from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings
@@ -143,13 +175,7 @@ def check_kernels(h, w, dev, timing: bool):
     k1_args = (x["origin"].reshape(n, 3), x["d"].reshape(n, 3),
                torch.zeros(n, device=dev), large_step.reshape(n),
                x["alive"].reshape(n), is_back, tiles.mini_table, scalars)
-    k1_kw = dict(
-        gh=h, gw=w, minis_x=tiles.minis_x, s_max=24,
-        k=16, max_small_step=cfg.max_small_step, max_medium_step=cfg.max_medium_step,
-        small_step_size=cfg.small_step_size, medium_step_size=cfg.medium_step_size,
-        marching_thickness=cfg.marching_thickness, step_growth=cfg.step_growth,
-        thickness_growth=cfg.thickness_growth,
-    )
+    k1_kw = fs.march_kwargs(cfg, tiles, 24)
     got = fs.schedule_pack(*k1_args, **k1_kw)
     ref = fs.schedule_pack_ref(*k1_args, **k1_kw)
     torch.cuda.synchronize()
@@ -171,8 +197,9 @@ def check_kernels(h, w, dev, timing: bool):
     r1_args = (*ref[:4], k1_args[0], k1_args[1], is_back, tiles.pair_table, scalars)
     r1_kw = dict(gh=h, gw=w, pairs_x=tiles.pairs_x,
                  n_rounds=ph.default_rounds(h, w), chain=cfg.hiz_chain, s_max=24)
+    links = []
     res_k = ph.resolve_rounds(*r1_args, **r1_kw)
-    res_r = ph.resolve_rounds_ref(*r1_args, **r1_kw)
+    res_r = ph.resolve_rounds_ref(*r1_args, **r1_kw, links_out=links)
     torch.cuda.synchronize()
     march = [
         ph.finalize(r.reshape(11, h, w), x["origin"], x["d"], is_back.reshape(h, w),
@@ -191,12 +218,110 @@ def check_kernels(h, w, dev, timing: bool):
 
     out = {"schedule_pack": {"max_abs_err": k1_err}, "resolve_rounds": {"max_abs_err": r1_err}}
     if timing:
+        n_links = float(links[0].sum())
+        out["schedule_pack"].update(bound(
+            n * (12 + 12 + 4 + 4 + 1 + 1) + n * (16 * 12 + 4) + tiles.mini_table.numel() * 4,
+            n * 24 * STEP_OPS))
+        # Per link: the three slot fields; the pair table is L2-resident,
+        # so it is read from memory at most once.
+        table = min(n_links * 4, tiles.pair_table.numel() * 4)
+        out["resolve_rounds"].update(bound(
+            n * (12 + 12 + 1 + 4) + n_links * 12 + table + n * 11 * 4, n_links * STEP_OPS))
         out["schedule_pack"]["ms"] = cuda_ms(lambda: fs.schedule_pack(*k1_args, **k1_kw), 20)
         out["schedule_pack"]["plain_ms"] = cuda_ms(
             lambda: fs.schedule_pack_ref(*k1_args, **k1_kw), 3)
         out["resolve_rounds"]["ms"] = cuda_ms(lambda: ph.resolve_rounds(*r1_args, **r1_kw), 20)
         out["resolve_rounds"]["plain_ms"] = cuda_ms(
             lambda: ph.resolve_rounds_ref(*r1_args, **r1_kw), 3)
+    return out
+
+
+def dual_settings(**kw):
+    """The refraction1080 configuration of scripts/bench_suite.py:157-167."""
+    from unitysspathtracingurp_tpu_torch.config import DenoiserType, PTSettings, ThicknessMode
+
+    return PTSettings(maximum_depth=3, samples_per_pixel=1, maximum_steps=24,
+                      support_refraction=True, accurate_thickness=ThicknessMode.DEPTH_NORMALS,
+                      dithering=False, denoiser=DenoiserType.OFFLINE, **kw)
+
+
+def check_dual_kernels(h, w, dev, timing: bool):
+    """Phase 3, dual layout, at one size: K4 and R1's dual mode against
+    their plain versions, bit for bit, with insideObject 0, 1 and 2."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+
+    gb, cam = boxscene(h, w, dev, glass=True)
+    x = march_inputs(gb, cam)
+    settings = dual_settings()
+    tiles = ph.build_tiles_for(gb, cam, settings.variants())
+    gate(tiles.n_combos == 3, "refraction + backface tiles have 3 combos")
+    n = h * w
+    large_step = settings.step_size + (20.0 - settings.step_size) * x["scene_dist"] * 0.001
+    is_back = ((x["d"] * -x["view_dir"]).sum(-1) > 0.0).reshape(n)
+    scalars = fs.schedule_scalars(cam)
+    out = {"schedule_pack_dual": {"max_abs_err": 0.0}, "resolve_rounds_dual": {"max_abs_err": 0.0}}
+    for inside in (0, 1, 2):
+        combo = torch.full((n,), inside, dtype=torch.int32, device=dev)
+        search = is_back | (inside == 2)
+        k4_args = (x["origin"].reshape(n, 3), x["d"].reshape(n, 3),
+                   torch.zeros(n, device=dev), large_step.reshape(n), x["alive"].reshape(n),
+                   combo, search, tiles.mini_table, tiles.bmax_table, scalars)
+        k4_kw = dict(fs.march_kwargs(PTConfig(), tiles, 24),
+                     chunks_per_combo=tiles.chunks_per_combo)
+        got = fs.schedule_pack_dual(*k4_args, **k4_kw)
+        ref = fs.schedule_pack_dual_ref(*k4_args, **k4_kw)
+        torch.cuda.synchronize()
+        k4_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        k4_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        r1_args = (*ref[:5], k4_args[0], k4_args[1], is_back, combo, search,
+                   tiles.tile_table, scalars)
+        r1_kw = dict(gh=h, gw=w, tiles_x=tiles.tiles_x, tiles_per_combo=tiles.tiles_per_combo,
+                     n_rounds=ph.default_rounds(h, w), chain=4, s_max=24, has_back=True)
+        links = []
+        res_k = ph.resolve_rounds_dual(*r1_args, **r1_kw)
+        res_r = ph.resolve_rounds_dual_ref(*r1_args, **r1_kw, links_out=links)
+        torch.cuda.synchronize()
+        r1_equal = torch.equal(res_k, res_r)
+        r1_err = (res_k - res_r).abs().max().item()
+        print(f"phase 3 K4 schedule_pack_dual {w}x{h} inside {inside}: all 5 outputs equal "
+              f"{k4_equal}, max abs err {k4_err:.3e}, lanes with candidates "
+              f"{(ref[4] > 0).float().mean().item():.4f}; R1 dual resolve_rounds_dual: "
+              f"15 rows equal {r1_equal}, max abs err {r1_err:.3e}, hit fraction "
+              f"{res_r[0].mean().item():.4f}, back hits {res_r[13].mean().item():.4f}, "
+              f"search hits {(res_r[14] * res_r[0]).mean().item():.4f}")
+        gate(k4_equal, f"K4 bit-exact against its plain version (inside {inside})")
+        gate(r1_equal, f"R1 dual bit-exact against its plain version (inside {inside})")
+        gate(bool((ref[4] > 0).any()) and bool((res_r[0] > 0).any()),
+             f"dual kernels exercised (inside {inside})")
+        out["schedule_pack_dual"]["max_abs_err"] = max(out["schedule_pack_dual"]["max_abs_err"],
+                                                       k4_err)
+        out["resolve_rounds_dual"]["max_abs_err"] = max(
+            out["resolve_rounds_dual"]["max_abs_err"], r1_err)
+        if timing and inside == 0:
+            n_links = float(links[0].sum())
+            tab = (tiles.mini_table.numel() + tiles.bmax_table.numel()) * 4
+            out["schedule_pack_dual"].update(bound(
+                n * (12 + 12 + 4 + 4 + 1 + 4 + 1) + n * (16 * 16 + 4) + tab,
+                n * 24 * STEP_OPS))
+            # Per link: the four slot fields; the tile table is L2-resident,
+            # so at most the slices of the combos in use come from memory, once.
+            table = min(n_links * 4, tiles.tiles_per_combo * 128 * 4
+                        * combo.unique().numel())
+            out["resolve_rounds_dual"].update(bound(
+                n * (12 + 12 + 1 + 4 + 4 + 1) + n_links * 16 + table + n * 15 * 4,
+                n_links * STEP_OPS))
+            out["schedule_pack_dual"]["ms"] = cuda_ms(
+                lambda: fs.schedule_pack_dual(*k4_args, **k4_kw), 20)
+            out["schedule_pack_dual"]["plain_ms"] = cuda_ms(
+                lambda: fs.schedule_pack_dual_ref(*k4_args, **k4_kw), 3)
+            out["resolve_rounds_dual"]["ms"] = cuda_ms(
+                lambda: ph.resolve_rounds_dual(*r1_args, **r1_kw), 20)
+            out["resolve_rounds_dual"]["plain_ms"] = cuda_ms(
+                lambda: ph.resolve_rounds_dual_ref(*r1_args, **r1_kw), 3)
     return out
 
 
@@ -208,44 +333,57 @@ def headline_settings():
                       maximum_samples=512)
 
 
-def check_frame(h, w, dev):
-    """Phase 4: one headline frame, kernels vs the plain path."""
+def path_config(dual: bool):
+    """(settings, cfg, back_depth_enabled, glass) of a main path."""
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+
+    if dual:
+        s = dual_settings(maximum_samples=512)
+        return s, PTConfig(), int(s.accurate_thickness.value), True
+    return headline_settings(), PTConfig.boxscene_headline(), 0, False
+
+
+def check_frame(h, w, dev, dual: bool):
+    """Phase 4: one frame, kernels vs the plain path."""
     import torch
 
-    from unitysspathtracingurp_tpu_torch.config import PTConfig
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
     from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
     from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
 
-    gb, cam = boxscene(h, w, dev)
+    s, cfg, bde, glass = path_config(dual)
+    gb, cam = boxscene(h, w, dev, glass=glass)
     probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
-    s, cfg = headline_settings(), PTConfig.boxscene_headline()
-    fast = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99)
+    fast = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, back_depth_enabled=bde)
     with plain_kernels():
-        plain = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99)
+        plain = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99,
+                                back_depth_enabled=bde)
     torch.cuda.synchronize()
     gate(bool(torch.isfinite(fast).all()), "frame has non-finite values")
-    non_sky = (gb.depth != 0.0).cpu().numpy()
+    non_sky = (gb.layer1_depth() != 0.0).cpu().numpy()
     rel, within = frame_agreement(fast.cpu().numpy(), plain.cpu().numpy(), non_sky)
-    print(f"phase 4 frame {w}x{h}: pooled relative RMSE {rel:.3e}, "
-          f"non-sky pixels within 1e-3 {within:.6f}")
+    print(f"phase 4 {'dual' if dual else 'headline'} frame {w}x{h}: pooled relative RMSE "
+          f"{rel:.3e}, non-sky pixels within 1e-3 {within:.6f}")
     gate(rel < 0.01 and within >= 0.99, "frame agreement")
 
 
-def main_path(dev, card):
-    """Phase 5: the Renderer at 1080p, offline, headline config."""
+def main_path(dev, card, dual: bool):
+    """Phase 5: the Renderer at 1080p, offline; the launch counts are
+    set to 0 just before the path and read just after it."""
     import torch
 
-    from unitysspathtracingurp_tpu_torch.config import PTConfig
     from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
     from unitysspathtracingurp_tpu_torch.models.renderer import Renderer
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
     from unitysspathtracingurp_tpu_torch.utils.metrics import mrays_per_sec
 
-    gb, cam = boxscene(H_FULL, W_FULL, dev)
-    s = headline_settings()
-    r = Renderer(s, H_FULL, W_FULL, cfg=PTConfig.boxscene_headline(),
-                 probes=ProbeSet(probe0=constant_probe(PROBE)), device=dev)
+    s, cfg, _, glass = path_config(dual)
+    gb, cam = boxscene(H_FULL, W_FULL, dev, glass=glass)
+    r = Renderer(s, H_FULL, W_FULL, cfg=cfg,
+                 probes=ProbeSet(probe0=constant_probe(PROBE, device=dev)), device=dev)
+    mine = ("schedule_pack_dual", "resolve_rounds_dual") if dual else (
+        "schedule_pack", "resolve_rounds")
+    others = [k for k in KERNELS if k not in mine]
     LAUNCHES.clear()
     per_frame = []
     image = r.render_frame(gb, cam)  # warm-up: builds the depth tiles
@@ -258,26 +396,28 @@ def main_path(dev, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         per_frame.append(dict(LAUNCHES))
-    dt = sum(times) / TIMED_FRAMES
     launches = dict(LAUNCHES)
+    dt = sum(times) / TIMED_FRAMES
     for i, counts in enumerate(per_frame, start=1):
-        gate(all(counts.get(name, 0) == 4 * i for name in KERNELS),
+        gate(all(counts.get(name, 0) == s.maximum_depth * i for name in mine)
+             and all(counts.get(name, 0) == 0 for name in others),
              f"launch counts after frame {i}: {counts}")
     gate(r.sample == 1 + TIMED_FRAMES, f"sample counter {r.sample}")
     gate(tuple(image.shape) == (H_FULL, W_FULL, 3), "image shape")
     gate(bool(torch.isfinite(image).all()), "accumulated image not finite")
     gate(float(r.offline_state.accum.mean()) > 0.0, "accumulated image is black")
-    sky = float((gb.depth == 0.0).float().mean())
+    sky = float((gb.layer1_depth() == 0.0).float().mean())
     rate = mrays_per_sec(H_FULL, W_FULL, 1, s.maximum_depth, dt, sky)
-    print(f"phase 5 main path Renderer.render_frame OFFLINE {W_FULL}x{H_FULL} "
-          f"4 bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
+    name = "dual (glass, refraction + DepthNormals)" if dual else "headline"
+    print(f"phase 5 {name} main path Renderer.render_frame OFFLINE {W_FULL}x{H_FULL} "
+          f"{s.maximum_depth} bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
           f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s, "
           f"samples {r.sample}, launches {launches} [{card}]")
-    profile_frames(r, gb, cam, card)
+    profile_frames(r, gb, cam, card, name)
     return launches
 
 
-def profile_frames(r, gb, cam, card, frames=2):
+def profile_frames(r, gb, cam, card, name, frames=2):
     """Device time by kernel over ``frames`` more main-path frames
     (torch.profiler, CUPTI). Reports; never fails the smoke."""
     import torch
@@ -295,7 +435,7 @@ def profile_frames(r, gb, cam, card, frames=2):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 t, c = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-        rows = [(t, c, name) for name, (t, c) in by_name.items()]
+        rows = [(t, c, key) for key, (t, c) in by_name.items()]
     except Exception as e:  # the profiler is a report, not a gate
         print(f"profile: torch.profiler failed: {e!r}")
         return
@@ -304,8 +444,8 @@ def profile_frames(r, gb, cam, card, frames=2):
         print("profile: torch.profiler saw no device time")
         return
     launches = sum(c for _, c, _ in rows)
-    print(f"profile of {frames} main-path frames: wall {wall_us / frames / 1e3:.3f} ms/frame, "
-          f"device busy {busy / frames / 1e3:.3f} ms/frame "
+    print(f"profile of {frames} {name} main-path frames: wall {wall_us / frames / 1e3:.3f} "
+          f"ms/frame, device busy {busy / frames / 1e3:.3f} ms/frame "
           f"(idle share {1.0 - busy / wall_us:.3f}), {launches / frames:.0f} "
           f"device ops/frame [{card}]")
     for t, c, key in sorted(rows, reverse=True)[:10]:
@@ -339,19 +479,28 @@ def main() -> int:
 
     stats = {}
     for h, w in ((256, 256), (H_FULL, W_FULL)):
-        stats = check_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL))
+        stats.update(check_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     for h, w in ((256, 256), (H_FULL, W_FULL)):
-        check_frame(h, w, dev)
-    launches = main_path(dev, card)
+        stats.update(check_dual_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
+    for dual in (False, True):
+        for h, w in ((256, 256), (H_FULL, W_FULL)):
+            check_frame(h, w, dev, dual)
+    launches = {}
+    for dual in (False, True):
+        counts = main_path(dev, card, dual)
+        for name in (("schedule_pack_dual", "resolve_rounds_dual") if dual
+                     else ("schedule_pack", "resolve_rounds")):
+            launches[name] = counts.get(name, 0)
 
     rows = [
         dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-             launches=launches.get(name, 0), **stats[name])
+             launches=launches[name], library_ms=None, **stats[name])
         for name, meta in KERNELS.items()
     ]
     for row in rows:
         print(f"kernel {row['name']} at the 1080p bounce-0 shape: {row['ms']:.4f} ms, "
-              f"plain PyTorch {row['plain_ms']:.4f} ms [{card}]")
+              f"plain PyTorch {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['launches']} launches on its main path [{card}]")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

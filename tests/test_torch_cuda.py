@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1, R1, K4 and R1's dual mode) against their plain
+PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device. On a
 machine with an NVIDIA GPU (no JAX needed):
@@ -13,7 +14,7 @@ on the same device.
 import pytest
 import torch
 
-from unitysspathtracingurp_tpu_torch.config import PTConfig
+from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings, ThicknessMode
 from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
 from unitysspathtracingurp_tpu_torch.models import fixtures, scene
 from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
@@ -38,18 +39,10 @@ def case():
     d = (d / d.norm(dim=-1, keepdim=True)).to(dev)
     origin = (torch.rand(n, 3, generator=g) * torch.tensor([5.0, 3.5, 5.0])
               - torch.tensor([2.5, 0.0, 2.5])).to(dev)
-    cfg = PTConfig()
     k1_args = (origin, d, torch.zeros(n, device=dev), torch.full((n,), 0.5, device=dev),
                torch.ones(n, dtype=torch.bool, device=dev), d[:, 2] > 0.3,
                tiles.mini_table, fs.schedule_scalars(cam))
-    k1_kw = dict(
-        gh=H, gw=W, minis_x=tiles.minis_x, s_max=24, k=16,
-        max_small_step=cfg.max_small_step, max_medium_step=cfg.max_medium_step,
-        small_step_size=cfg.small_step_size, medium_step_size=cfg.medium_step_size,
-        marching_thickness=cfg.marching_thickness, step_growth=cfg.step_growth,
-        thickness_growth=cfg.thickness_growth,
-    )
-    return tiles, k1_args, k1_kw
+    return tiles, k1_args, fs.march_kwargs(PTConfig(), tiles, 24)
 
 
 def test_schedule_pack_kernel_bit_exact(case):
@@ -78,9 +71,89 @@ def test_resolve_rounds_kernel_bit_exact(case):
     assert torch.equal(got, ref)
 
 
-def test_kernel_rejects_cpu_inputs_on_cuda_call(case):
-    _, args, kw = case
+@pytest.fixture(scope="module")
+def dual_case():
+    """Random rays in the glass box at 256^2 lanes, with the refraction +
+    backface (3-combo) tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    h = w = 256
+    cam = fixtures.box_scene_camera(h, w, device=dev)
+    gb = fixtures.rasterize_gbuffers(scene.build_box_scene(with_glass=True, with_mirror=False),
+                                     cam, h, w, device=dev, with_backface=True)
+    variants = PTSettings(support_refraction=True,
+                          accurate_thickness=ThicknessMode.DEPTH_NORMALS).variants()
+    tiles = ph.build_tiles_for(gb, cam, variants)
+    g = torch.Generator().manual_seed(11)
+    n = h * w
+    d = torch.randn(n, 3, generator=g)
+    d = (d / d.norm(dim=-1, keepdim=True)).to(dev)
+    origin = (torch.rand(n, 3, generator=g) * torch.tensor([5.0, 3.5, 5.0])
+              - torch.tensor([2.5, 0.0, 2.5])).to(dev)
+    return dev, n, h, w, cam, tiles, origin, d, fs.march_kwargs(PTConfig(), tiles, 24)
+
+
+def _dual_args(dual_case, inside):
+    dev, n, h, w, cam, tiles, origin, d, kw = dual_case
+    back = d[:, 2] > 0.3
+    combo = torch.full((n,), inside, dtype=torch.int32, device=dev)
+    search = back | (inside == 2)
+    k4_args = (origin, d, torch.zeros(n, device=dev), torch.full((n,), 0.5, device=dev),
+               torch.ones(n, dtype=torch.bool, device=dev), combo, search,
+               tiles.mini_table, tiles.bmax_table, fs.schedule_scalars(cam))
+    k4_kw = dict(kw, chunks_per_combo=tiles.chunks_per_combo)
+    r_kw = dict(gh=h, gw=w, tiles_x=tiles.tiles_x, tiles_per_combo=tiles.tiles_per_combo,
+                n_rounds=4, chain=4, s_max=24, has_back=True)
+    return k4_args, k4_kw, back, r_kw
+
+
+@pytest.mark.parametrize("inside", [0, 1, 2])
+def test_schedule_pack_dual_kernel_bit_exact(dual_case, inside):
+    args, kw, _, _ = _dual_args(dual_case, inside)
+    before = LAUNCHES["schedule_pack_dual"]
+    got = fs.schedule_pack_dual(*args, **kw)
+    ref = fs.schedule_pack_dual_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["schedule_pack_dual"] == before + 1
+    assert (ref[4] > 0).float().mean() > 0.1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("inside", [0, 1, 2])
+def test_resolve_rounds_dual_kernel_bit_exact(dual_case, inside):
+    args, kw, back, r_kw = _dual_args(dual_case, inside)
+    packs = fs.schedule_pack_dual_ref(*args, **kw)
+    r_args = (*packs, args[0], args[1], back, args[5], args[6], dual_case[5].tile_table,
+              args[9])
+    before = LAUNCHES["resolve_rounds_dual"]
+    got = ph.resolve_rounds_dual(*r_args, **r_kw)
+    ref = ph.resolve_rounds_dual_ref(*r_args, **r_kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["resolve_rounds_dual"] == before + 1
+    assert got.shape == (15, dual_case[1]) and got[0].mean() > 0.02
+    assert torch.equal(got, ref)
+
+
+def test_kernel_rejects_cpu_inputs_on_cuda_call(case, dual_case):
+    """Each kernel's wrapper, handed a CPU tensor beside CUDA ones, raises."""
+    tiles, args, kw = case
     mixed = list(args)
     mixed[6] = mixed[6].cpu()
     with pytest.raises(RuntimeError, match="CUDA"):
         fs.schedule_pack(*mixed, **kw)
+    packs = fs.schedule_pack_ref(*args, **kw)
+    r_args = [*packs, args[0], args[1], args[5], tiles.pair_table.cpu(), args[7]]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ph.resolve_rounds(*r_args, gh=H, gw=W, pairs_x=tiles.pairs_x, n_rounds=4, chain=4,
+                          s_max=24)
+    d_args, d_kw, back, r_kw = _dual_args(dual_case, 1)
+    mixed = list(d_args)
+    mixed[8] = mixed[8].cpu()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fs.schedule_pack_dual(*mixed, **d_kw)
+    dpacks = fs.schedule_pack_dual_ref(*d_args, **d_kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ph.resolve_rounds_dual(*dpacks, d_args[0], d_args[1], back, d_args[5], d_args[6],
+                               dual_case[5].tile_table.cpu(), d_args[9], **r_kw)

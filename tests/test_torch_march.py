@@ -48,7 +48,9 @@ from unitysspathtracingurp_tpu_torch.models import fixtures as tfixtures
 from unitysspathtracingurp_tpu_torch.models import scene as tscene
 from unitysspathtracingurp_tpu_torch.models.renderer import Renderer as TRenderer
 from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as tpathtrace_hiz
-from unitysspathtracingurp_tpu_torch.ops.fused_schedule import schedule_pack, schedule_scalars
+from unitysspathtracingurp_tpu_torch.ops.fused_schedule import (
+    march_kwargs, schedule_pack, schedule_scalars,
+)
 from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
 
 torch.set_num_threads(1)
@@ -70,7 +72,7 @@ def _port_tiles(tiles):
     return convert.depth_tiles(
         tiles.pair_table, tiles.mini_table, height=tiles.height, width=tiles.width,
         tiles_x=tiles.tiles_x, tiles_y=tiles.tiles_y, pairs_x=tiles.pairs_x,
-        minis_x=tiles.minis_x,
+        minis_x=tiles.minis_x, device="cpu",
     )
 
 
@@ -112,8 +114,8 @@ def march_case():
         jax_res={k: np.asarray(v) for k, v in res._asdict().items()},
         jax_pk=[np.asarray(x) for x in dbg["c0_pk"]],
         jax_ncand=np.asarray(dbg["c0_n_cand"]).reshape(-1),
-        gb=convert.gbuffers(_np_tree(gb)),
-        cam=convert.camera(_np_tree(cam)),
+        gb=convert.gbuffers(_np_tree(gb), device="cpu"),
+        cam=convert.camera(_np_tree(cam), device="cpu"),
         tiles=_port_tiles(tiles),
         origin=_t(origin), d=_t(d), alive=_t(alive), view_dir=_t(view_dir),
         scene_dist=_t(scene_dist), settings=settings, cfg=cfg,
@@ -129,13 +131,7 @@ def test_schedule_pack_ref_matches_jax_packs(march_case):
     pk_cum, pk_scode, pk_hist, n_cand = schedule_pack(
         c["origin"].reshape(n, 3), c["d"].reshape(n, 3), torch.zeros(n),
         large_step.reshape(n), c["alive"].reshape(n), is_back,
-        tiles.mini_table, schedule_scalars(c["cam"]),
-        gh=tiles.height, gw=tiles.width, minis_x=tiles.minis_x,
-        s_max=24, k=16,
-        max_small_step=cfg.max_small_step, max_medium_step=cfg.max_medium_step,
-        small_step_size=cfg.small_step_size, medium_step_size=cfg.medium_step_size,
-        marching_thickness=cfg.marching_thickness, step_growth=cfg.step_growth,
-        thickness_growth=cfg.thickness_growth,
+        tiles.mini_table, schedule_scalars(c["cam"]), **march_kwargs(cfg, tiles, 24),
     )
     ref_cum, ref_scode, ref_hist = c["jax_pk"]
     assert (n_cand.numpy() == c["jax_ncand"]).mean() >= 0.9999
@@ -190,8 +186,9 @@ def frame_case():
     return dict(
         traced=np.asarray(traced), shown=np.asarray(shown),
         non_sky=np.asarray(gb.depth) != 0.0,
-        gb=convert.gbuffers(_np_tree(gb)), cam=convert.camera(_np_tree(cam)),
-        probes=convert.probe_set(_np_tree(probes.probe0)),
+        gb=convert.gbuffers(_np_tree(gb), device="cpu"),
+        cam=convert.camera(_np_tree(cam), device="cpu"),
+        probes=convert.probe_set(_np_tree(probes.probe0), device="cpu"),
         settings=convert.pt_settings(settings), cfg=convert.pt_config(cfg),
     )
 
@@ -214,7 +211,7 @@ def test_trace_frame_hiz_matches_jax(frame_case):
 
 def test_renderer_offline_frame_matches_jax(frame_case):
     c = frame_case
-    r = TRenderer(c["settings"], FH, FW, cfg=c["cfg"], probes=c["probes"])
+    r = TRenderer(c["settings"], FH, FW, cfg=c["cfg"], probes=c["probes"], device="cpu")
     out = r.render_frame(c["gb"], c["cam"])
     assert r.sample == 1 and r.frame_index == 33
     _assert_frame_close(out.numpy(), c["shown"], c["non_sky"])
@@ -227,8 +224,8 @@ def test_rasterizer_copy_matches_jax_fixtures():
     sc = scene.build_box_scene()
     cam = fixtures.box_scene_camera(32, 48)
     gb = fixtures.rasterize_gbuffers(sc, cam, 32, 48)
-    tcam = convert.camera(_np_tree(cam))
-    tgb = tfixtures.rasterize_gbuffers(tscene.build_box_scene(), tcam, 32, 48)
+    tcam = convert.camera(_np_tree(cam), device="cpu")
+    tgb = tfixtures.rasterize_gbuffers(tscene.build_box_scene(), tcam, 32, 48, device="cpu")
     assert np.abs(tgb.depth.numpy() - np.asarray(gb.depth)).max() < 1e-6
     for name in ("albedo", "gbuffer1", "smoothness", "emission"):
         assert np.array_equal(getattr(tgb, name).numpy(), np.asarray(getattr(gb, name)))

@@ -50,9 +50,9 @@ from unitysspathtracingurp_tpu_torch.ops import brdf as tbrdf
 from unitysspathtracingurp_tpu_torch.ops import depth_tiles as ttiles
 from unitysspathtracingurp_tpu_torch.ops import envprobe as tenv
 from unitysspathtracingurp_tpu_torch.ops import rng as trng
-from unitysspathtracingurp_tpu_torch.ops.fused_schedule import schedule_pack
+from unitysspathtracingurp_tpu_torch.ops.fused_schedule import schedule_pack, schedule_pack_dual
 from unitysspathtracingurp_tpu_torch.ops.pathtrace import compact_indices
-from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import resolve_rounds
+from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import resolve_rounds, resolve_rounds_dual
 from unitysspathtracingurp_tpu_torch.utils import image as timage
 
 torch.set_num_threads(1)
@@ -85,7 +85,8 @@ def box():
     """BoxScene G-buffer + camera from the JAX fixtures, carried across."""
     cam = jfixtures.box_scene_camera(40, 96)
     gb = jfixtures.rasterize_gbuffers(jscene.build_box_scene(), cam, 40, 96)
-    return gb, cam, convert.gbuffers(np_tree(gb)), convert.camera(np_tree(cam))
+    return (gb, cam, convert.gbuffers(np_tree(gb), device="cpu"),
+            convert.camera(np_tree(cam), device="cpu"))
 
 
 # ---------------------------------------------------------------- config
@@ -124,7 +125,7 @@ def test_settings_validate_ranges(field, value):
 @pytest.mark.parametrize("cfg_kw,settings_kw", [
     ({"hiz_home_prefix": True}, {}),
     ({"hiz_round_cap": 0.4}, {}),
-    ({}, {"support_refraction": True}),
+    ({}, {"gbuffer_normals_oct": True}),
     ({}, {"noise_method": tconfig.NoiseMethod.BLUE_NOISE}),
     ({}, {"denoiser": tconfig.DenoiserType.TEMPORAL}),
     ({}, {"ignore_forward_objects": True}),
@@ -133,7 +134,7 @@ def test_unported_knobs_raise(cfg_kw, settings_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfig.PTConfig(**cfg_kw).check_supported()
         tconfig.PTSettings(**settings_kw).variants().check_supported()
-        Renderer(tconfig.PTSettings(**settings_kw), 16, 16)
+        Renderer(tconfig.PTSettings(**settings_kw), 16, 16, device="cpu")
 
 
 # ---------------------------------------------------------------- camera
@@ -141,7 +142,7 @@ def test_unported_knobs_raise(cfg_kw, settings_kw):
 
 def test_make_camera_matches_jax():
     args = ([0.3, 1.8, 6.5], [0.0, 1.5, 0.0], [0.0, 1.0, 0.0], np.radians(50.0), 1.7, 0.1, 100.0)
-    jc, tc = jcamera.make_camera(*args), tcamera.make_camera(*args)
+    jc, tc = jcamera.make_camera(*args), tcamera.make_camera(*args, device="cpu")
     for name in ("position", "view", "proj", "view_proj", "inv_view_proj", "near", "far"):
         np.testing.assert_allclose(
             getattr(tc, name).numpy(), np.asarray(getattr(jc, name)), rtol=2e-6, atol=2e-6
@@ -166,7 +167,7 @@ def test_projections_match_jax(box):
         tcamera.linear_eye_depth(T(raw), tc.near, tc.far).numpy(),
         np.asarray(jcamera.linear_eye_depth(J(raw), jc.near, jc.far)), rtol=1e-6,
     )
-    assert np.array_equal(tcamera.pixel_uv(5, 7).numpy(), np.asarray(jcamera.pixel_uv(5, 7)))
+    assert np.array_equal(tcamera.pixel_uv(5, 7, device="cpu").numpy(), np.asarray(jcamera.pixel_uv(5, 7)))
 
 
 # ---------------------------------------------------------------- rng
@@ -177,7 +178,7 @@ def test_rng_stream_bit_exact():
     got = trng.jenkins_hash_u32(T(x.astype(np.int64))).numpy()
     assert np.array_equal(got.astype(np.uint32), np.asarray(jrng.jenkins_hash_u32(J(x))))
     fi = 33 * 77
-    jr, tr = jrng.make_rng(6, 10, fi), trng.make_rng(6, 10, fi)
+    jr, tr = jrng.make_rng(6, 10, fi), trng.make_rng(6, 10, fi, device="cpu")
     for _ in range(3):
         (jv, jr), (tv, tr) = jrng.draw(jr), trng.draw(tr)
         assert np.array_equal(tv.numpy(), np.asarray(jv))
@@ -269,14 +270,14 @@ def test_envprobe_matches_jax():
     np.testing.assert_allclose(tenv.oct_decode(T(uv)).numpy(),
                                np.asarray(jenv.oct_decode(J(uv))), atol=2e-7)
     jp = jenv.ProbeSet(probe0=jenv.constant_probe([0.05, 0.06, 0.08]))
-    tp = convert.probe_set(np_tree(jp.probe0))
+    tp = convert.probe_set(np_tree(jp.probe0), device="cpu")
     assert np.array_equal(
         tenv.sample_reflection_probes(tp, T(d), T(d)).numpy(),
         np.asarray(jenv.sample_reflection_probes(jp, J(d), J(d))),
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tenv.sample_reflection_probes(
-            tenv.ProbeSet(probe0=tenv.constant_probe([1, 1, 1], resolution=4)), T(d), T(d)
+            tenv.ProbeSet(probe0=tenv.constant_probe([1, 1, 1], resolution=4, device="cpu")), T(d), T(d)
         )
 
 
@@ -315,7 +316,7 @@ def test_depth_tiles_bit_exact(h, w):
 
 def test_accumulate_and_cue_match_jax():
     h, w, mx = 20, 30, 16
-    js, ts = jaccum.OfflineAccumState.create(h, w), taccum.OfflineAccumState.create(h, w)
+    js, ts = jaccum.OfflineAccumState.create(h, w), taccum.OfflineAccumState.create(h, w, device="cpu")
     for i in range(5):
         frame = RS.uniform(0, 3, (h, w, 3)).astype(np.float32)
         paused = i == 3
@@ -349,7 +350,31 @@ def test_port_never_imports_jax():
         assert not pat.search(src.read_text()), f"{src} imports JAX"
 
 
-def test_cuda_tensor_without_kernel_raises(monkeypatch):
+def _meta(*shape, dt=torch.float32):
+    return torch.empty(*shape, dtype=dt, device="meta")
+
+
+_F, _I, _B = torch.float32, torch.int32, torch.bool
+_KERNEL_CALLS = {
+    "schedule_pack": lambda: schedule_pack(
+        _meta(8, 3), _meta(8, 3), _meta(8), _meta(8), _meta(8, dt=_B), _meta(8, dt=_B),
+        _meta(1, 128, dt=_I), _meta(18), k=16),
+    "resolve_rounds": lambda: resolve_rounds(
+        _meta(16, 8), _meta(16, 8), _meta(16, 8), _meta(8, dt=_I), _meta(8, 3), _meta(8, 3),
+        _meta(8, dt=_B), _meta(4, 128, dt=_I), _meta(18)),
+    "schedule_pack_dual": lambda: schedule_pack_dual(
+        _meta(8, 3), _meta(8, 3), _meta(8), _meta(8), _meta(8, dt=_B), _meta(8, dt=_I),
+        _meta(8, dt=_B), _meta(3, 128, dt=_I), _meta(3, 128, dt=_I), _meta(18),
+        chunks_per_combo=1, k=16),
+    "resolve_rounds_dual": lambda: resolve_rounds_dual(
+        _meta(16, 8), _meta(16, 8), _meta(16, 8), _meta(16, 8), _meta(8, dt=_I),
+        _meta(8, 3), _meta(8, 3), _meta(8, dt=_B), _meta(8, dt=_I), _meta(8, dt=_B),
+        _meta(6, 128, dt=_I), _meta(18)),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_KERNEL_CALLS))
+def test_cuda_tensor_without_kernel_raises(monkeypatch, kernel):
     """A non-CPU tensor takes the kernel path: with no kernel available
     it raises, and never runs the plain version instead."""
     from unitysspathtracingurp_tpu_torch.kernels import build
@@ -357,16 +382,9 @@ def test_cuda_tensor_without_kernel_raises(monkeypatch):
     monkeypatch.setattr(build, "nvcc_path", lambda: None)
     monkeypatch.setattr(build, "BUILD_DIR", Path(os.devnull).parent / "no-such-dir")
     build.load_library.cache_clear()
-    meta = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
     try:
         with pytest.raises(RuntimeError, match="nvcc"):
-            schedule_pack(meta(8, 3), meta(8, 3), meta(8), meta(8), meta(8, dt=torch.bool),
-                          meta(8, dt=torch.bool), meta(1, 128, dt=torch.int32), meta(18),
-                          k=16)
-        with pytest.raises(RuntimeError, match="nvcc"):
-            resolve_rounds(meta(16, 8), meta(16, 8), meta(16, 8), meta(8, dt=torch.int32),
-                           meta(8, 3), meta(8, 3), meta(8, dt=torch.bool),
-                           meta(4, 128, dt=torch.int32), meta(18))
+            _KERNEL_CALLS[kernel]()
     finally:
         build.load_library.cache_clear()
 
@@ -376,8 +394,8 @@ def test_cuda_tensor_without_kernel_raises(monkeypatch):
 
 @pytest.fixture(scope="module")
 def small_scene():
-    cam = tfixtures.box_scene_camera(32, 32)
-    gb = tfixtures.rasterize_gbuffers(tscene.build_box_scene(), cam, 32, 32)
+    cam = tfixtures.box_scene_camera(32, 32, device="cpu")
+    gb = tfixtures.rasterize_gbuffers(tscene.build_box_scene(), cam, 32, 32, device="cpu")
     return gb, cam
 
 
@@ -385,7 +403,9 @@ def _renderer(**kw):
     s = tconfig.PTSettings(maximum_depth=1, dithering=False, maximum_samples=4,
                            denoiser=tconfig.DenoiserType.OFFLINE, progress_bar=False, **kw)
     return Renderer(s, 32, 32, cfg=tconfig.PTConfig(hiz_rounds=2),
-                    probes=tenv.ProbeSet(probe0=tenv.constant_probe([0.05, 0.06, 0.08])))
+                    probes=tenv.ProbeSet(probe0=tenv.constant_probe([0.05, 0.06, 0.08],
+                                                                    device="cpu")),
+                    device="cpu")
 
 
 def test_renderer_invalidation_pause_and_converged_skip(small_scene):
@@ -397,8 +417,8 @@ def test_renderer_invalidation_pause_and_converged_skip(small_scene):
     tiles = r._tiles
     r.render_frame(gb, cam, scene_key="a")  # scene-light change restarts
     assert r.sample == 1 and r._tiles is tiles  # same depth buffer: tiles reused
-    cam2 = tfixtures.box_scene_camera(32, 32, jitter=0.1)
-    gb2 = tfixtures.rasterize_gbuffers(tscene.build_box_scene(), cam2, 32, 32)
+    cam2 = tfixtures.box_scene_camera(32, 32, jitter=0.1, device="cpu")
+    gb2 = tfixtures.rasterize_gbuffers(tscene.build_box_scene(), cam2, 32, 32, device="cpu")
     r.render_frame(gb2, cam2, scene_key="a")  # camera move restarts
     assert r.sample == 1 and r._tiles is not tiles
     r.paused = True
@@ -431,7 +451,7 @@ def test_trace_frame_hiz_tuple_rounds(small_scene):
 
     gb, cam = small_scene
     s = tconfig.PTSettings(maximum_depth=2)
-    probes = tenv.ProbeSet(probe0=tenv.constant_probe([0.05, 0.06, 0.08]))
+    probes = tenv.ProbeSet(probe0=tenv.constant_probe([0.05, 0.06, 0.08], device="cpu"))
     run = lambda r: trace_frame_hiz(  # noqa: E731
         gb, cam, probes, s, tconfig.PTConfig(), s.variants(), 33, n_rounds=r)
     assert torch.equal(run(3), run((3,)))
@@ -443,18 +463,18 @@ def test_trace_frame_hiz_tuple_rounds(small_scene):
 
 def test_convert_state_and_unported_layers(box):
     jgb, _, _, _ = box
-    state = convert.offline_state(np.ones((2, 3, 3), np.float32), np.int32(5))
+    state = convert.offline_state(np.ones((2, 3, 3), np.float32), np.int32(5), device="cpu")
     assert state.sample == 5 and state.accum.shape == (2, 3, 3)
     leaves = np_tree(jgb)
-    leaves["back_depth"] = np.zeros((40, 96), np.float32)
+    leaves["motion"] = np.zeros((40, 96, 2), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert.gbuffers(leaves)
+        convert.gbuffers(leaves, device="cpu")
 
 
 def test_renderer_none_mode_and_disabled(small_scene):
     gb, cam = small_scene
     s = tconfig.PTSettings(maximum_depth=1, dithering=False)
-    out = Renderer(s, 32, 32).render_frame(gb, cam)
+    out = Renderer(s, 32, 32, device="cpu").render_frame(gb, cam)
     assert out.shape == (32, 32, 3) and torch.isfinite(out).all()
-    off = Renderer(tconfig.PTSettings(state=False), 32, 32)
+    off = Renderer(tconfig.PTSettings(state=False), 32, 32, device="cpu")
     assert off.render_frame(gb, cam) is gb.emission

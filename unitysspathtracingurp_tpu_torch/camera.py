@@ -73,8 +73,9 @@ def look_at(eye, target, up):
     return view
 
 
-def make_camera(eye, target, up, fov_y, aspect, near, far, device="cpu") -> Camera:
-    """Built in f32 on the CPU (full-precision matmul), then moved."""
+def make_camera(eye, target, up, fov_y, aspect, near, far, device="cuda") -> Camera:
+    """Built in f32 on the CPU (full-precision matmul), then moved to
+    ``device`` (the card unless the caller asks for the CPU)."""
     view = look_at(eye, target, up)
     proj = perspective_reversed_z(fov_y, aspect, near, far)
     view_proj = proj @ view
@@ -127,7 +128,7 @@ def linear_eye_depth(raw_depth, near, far):
     return 1.0 / (raw_depth * zz + zw)
 
 
-def pixel_uv(height: int, width: int, device="cpu"):
+def pixel_uv(height: int, width: int, device):
     """Per-pixel uv grid (H, W, 2); row 0 = bottom of the image."""
     v = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
     u = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width

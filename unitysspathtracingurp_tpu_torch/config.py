@@ -119,11 +119,6 @@ class PTVariants:
     gbuffer_normals_oct: bool = False
 
     def check_supported(self) -> "PTVariants":
-        if self.support_refraction or self.backface_textures:
-            raise NotImplementedError(
-                "refraction / backface variants need the dual depth layout "
-                "(kernel K4): ROADMAP Queue 1 item 9"
-            )
         if self.blue_noise or self.sobol_owen:
             raise NotImplementedError(
                 "blue-noise / Sobol-Owen samplers: ROADMAP Queue 1 item 11"

@@ -2,9 +2,9 @@
 
 Every function takes the JAX objects' leaves as numpy arrays (the caller
 runs ``np.asarray`` on them, so this module never imports JAX) and
-returns the port's object on ``device``. Bit patterns carry over
-unchanged: the JAX package keeps uint32 table words in f32 arrays, the
-port in int32 tensors.
+returns the port's object on ``device``, the card unless the caller
+asks for the CPU. Bit patterns carry over unchanged: the JAX package
+keeps uint32 table words in f32 arrays, the port in int32 tensors.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from . import config as tconfig
 from .camera import Camera
 from .gbuffer import GBuffers
 from .ops.accumulate import OfflineAccumState
-from .ops.depth_tiles import DepthTiles
+from .ops.depth_tiles import DepthTiles, DualDepthTiles
 from .ops.envprobe import EnvProbe, ProbeSet
 
 
@@ -32,27 +32,27 @@ def _t(a, device, dtype=None):
     return (t if dtype is None else t.to(dtype)).to(device)
 
 
-def gbuffers(leaves: dict, device="cpu") -> GBuffers:
-    """``leaves``: field name -> numpy array (None for absent layers).
-    Layers the port does not decode yet raise rather than drop."""
+def gbuffers(leaves: dict, device="cuda") -> GBuffers:
+    """``leaves``: field name -> numpy array (None for absent layers),
+    the transparent and backface layers included. Layers the port does
+    not decode yet (motion vectors) raise rather than drop."""
     names = {f.name for f in dataclasses.fields(GBuffers)}
     extra = sorted(k for k, v in leaves.items() if v is not None and k not in names)
     if extra:
         raise NotImplementedError(
-            f"G-buffer layers {extra}: ROADMAP Queue 1 items 9 (transparent, "
-            "backface) and 10 (motion)"
+            f"G-buffer layers {extra}: ROADMAP Queue 1 item 10 (motion vectors)"
         )
     return GBuffers(**{name: _t(leaves.get(name), device) for name in names})
 
 
-def camera(leaves: dict, device="cpu") -> Camera:
+def camera(leaves: dict, device="cuda") -> Camera:
     return Camera(**{
         f.name: _t(leaves[f.name], device, torch.float32)
         for f in dataclasses.fields(Camera)
     })
 
 
-def env_probe(leaves: dict, device="cpu") -> EnvProbe:
+def env_probe(leaves: dict, device="cuda") -> EnvProbe:
     return EnvProbe(
         texture=_t(leaves["texture"], device, torch.float32),
         hdr_mult=_t(leaves["hdr_mult"], device, torch.float32),
@@ -65,7 +65,7 @@ def env_probe(leaves: dict, device="cpu") -> EnvProbe:
 
 
 def probe_set(probe0: dict, probe1: dict | None = None, blend_weight=None,
-              probe_set=None, is_probe_camera=None, device="cpu") -> ProbeSet:
+              probe_set=None, is_probe_camera=None, device="cuda") -> ProbeSet:
     return ProbeSet(
         probe0=env_probe(probe0, device),
         probe1=None if probe1 is None else env_probe(probe1, device),
@@ -75,20 +75,32 @@ def probe_set(probe0: dict, probe1: dict | None = None, blend_weight=None,
     )
 
 
+def _bits_i32(a, device):
+    """An f32-bitcast uint32 table -> the same bits in an int32 tensor."""
+    return torch.as_tensor(np.array(np.asarray(a, np.float32).view(np.int32))).to(device)
+
+
 def depth_tiles(pair_table, mini_table, *, height, width, tiles_x, tiles_y,
-                pairs_x, minis_x, device="cpu") -> DepthTiles:
+                pairs_x, minis_x, device="cuda") -> DepthTiles:
     """The JAX ``DepthTiles``: f32-bitcast uint32 tables + static ints."""
-    as_i32 = lambda a: torch.as_tensor(  # noqa: E731
-        np.array(np.asarray(a, np.float32).view(np.int32))
-    ).to(device)
     return DepthTiles(
-        pair_table=as_i32(pair_table), mini_table=as_i32(mini_table),
+        pair_table=_bits_i32(pair_table, device), mini_table=_bits_i32(mini_table, device),
         height=height, width=width, tiles_x=tiles_x, tiles_y=tiles_y,
         pairs_x=pairs_x, minis_x=minis_x,
     )
 
 
-def offline_state(accum, sample, device="cpu") -> OfflineAccumState:
+def dual_depth_tiles(tile_table, mini_table, bmax_table, *, height, width, tiles_x,
+                     tiles_y, minis_x, n_combos, device="cuda") -> DualDepthTiles:
+    """The JAX ``DualDepthTiles``: three f32-bitcast uint32 tables + ints."""
+    return DualDepthTiles(
+        tile_table=_bits_i32(tile_table, device), mini_table=_bits_i32(mini_table, device),
+        bmax_table=_bits_i32(bmax_table, device), height=height, width=width,
+        tiles_x=tiles_x, tiles_y=tiles_y, minis_x=minis_x, n_combos=n_combos,
+    )
+
+
+def offline_state(accum, sample, device="cuda") -> OfflineAccumState:
     return OfflineAccumState(accum=_t(accum, device), sample=int(np.asarray(sample)))
 
 

@@ -1,9 +1,26 @@
-// K1: march schedule + minitile interval filter + candidate pack.
+// K1 and K4: march schedule + minitile interval filter + candidate pack.
 //
-// Replaces unitysspathtracingurp_tpu/ops/fused_schedule.py
+// K1 (DUAL = false) replaces unitysspathtracingurp_tpu/ops/fused_schedule.py
 // _fused_schedule_pack, plain layout (the pallas_call at :639), itself
 // the fused form of ops/pathtrace_hiz.py phases 1-3 (:293-464). The
 // plain PyTorch version is ops/fused_schedule.py schedule_pack_ref.
+//
+// K4 (DUAL = true) replaces the same Pallas kernel with dual=True
+// (fused_schedule.py:213-251, 348-377; pallas_call :639), the
+// refraction / backface variants on DualDepthTiles. Per lane it adds to
+// K1: the combo-offset minitile lookup (mini + combo * combo_words), the
+// bmax table read, the conservative candidate rule
+//   proc & hitd >= mmin & (hitd - max(th, step) <= umax | search | hitd <= bmax)
+// (pathtrace_hiz.py:398-404), and a 4th packed field pk_step = q40(step).
+// Its plain PyTorch version is schedule_pack_dual_ref. Its bound: each
+// lane reads 38 B (K1's minus is_back, plus combo and search) and
+// writes K*16 + 4 = 260 B, ~0.62 GB at 1080p, ~0.18 ms. The dual tables
+// are 3 combos x 32 chunks x 128 words x 4 B = 48 KB each at 1080p, 96 KB
+// for the pair: as dynamic shared memory that would leave room for only
+// two 128-thread blocks per SM, so K4 reads them from global memory
+// through the read-only cache (__ldg) and keeps K1's occupancy. The f16
+// halves widen exactly (__half2float keeps +-inf and subnormals), the
+// same values the plain version's f16 -> f32 casts give.
 //
 // Per lane: rebuild the s_max-step march schedule (6 small steps, 12
 // medium, then the per-lane large step; x1.1 step and +25% thickness
@@ -61,20 +78,32 @@ __device__ __forceinline__ float q40(float x, float mx) {
   return fminf(fmaxf(rintf(x * 40.0f), 0.0f), mx);
 }
 
+// Per-lane inputs and outputs of the dual mode (unused by K1).
+struct DualArgs {
+  const int32_t* combo;
+  const uint8_t* search;
+  const uint32_t* bmax_table;
+  float* pk_step;
+  int combo_words;
+};
+
+template <bool DUAL>
 __global__ void schedule_pack_kernel(
     const float* __restrict__ ray_pos, const float* __restrict__ ray_dir,
     const float* __restrict__ dither, const float* __restrict__ large_step,
     const uint8_t* __restrict__ alive, const uint8_t* __restrict__ is_back,
     const uint32_t* __restrict__ mini_table, const float* __restrict__ scalars,
     float* __restrict__ pk_cum, float* __restrict__ pk_scode,
-    float* __restrict__ pk_hist, int32_t* __restrict__ n_cand,
+    float* __restrict__ pk_hist, int32_t* __restrict__ n_cand, DualArgs dual,
     int n, int gh, int gw, int minis_x, int n_mini_words, int s_max, int k,
     int max_small, int max_medium, float small_step, float medium_step,
     float thickness, float th_inc, float step_growth, float th_cap,
     float texel_x, float texel_y) {
   extern __shared__ uint32_t s_mini[];
   __shared__ float s_m[18];
-  for (int i = threadIdx.x; i < n_mini_words; i += blockDim.x) s_mini[i] = mini_table[i];
+  if (!DUAL) {
+    for (int i = threadIdx.x; i < n_mini_words; i += blockDim.x) s_mini[i] = mini_table[i];
+  }
   if (threadIdx.x < 18) s_m[threadIdx.x] = scalars[threadIdx.x];
   __syncthreads();
 
@@ -90,7 +119,9 @@ __global__ void schedule_pack_kernel(
   const float dth = dither[lane];
   const float lstep = large_step[lane];
   bool marching = alive[lane] != 0;
-  const bool backray = is_back[lane] != 0;
+  const bool backray = DUAL ? false : is_back[lane] != 0;
+  const bool searchlane = DUAL ? dual.search[lane] != 0 : false;
+  const int combo_off = DUAL ? dual.combo[lane] * dual.combo_words : 0;
 
   float last_u, last_v, raw0;
   project(m, px, py, pz, last_u, last_v, raw0);
@@ -118,11 +149,22 @@ __global__ void schedule_pack_kernel(
     const int ix = pixel_index(u, gw);
     const int iy = pixel_index(v, gh);
     const float hitd = 1.0f / (raw * zz + zw);
-    const int mini = (iy / 16) * minis_x + ix / 32;
-    const uint32_t word = s_mini[min(mini, n_mini_words - 1)];
-    const float mmin = half_bits_to_float(word);
-    const float mmax = half_bits_to_float(word >> 16);
-    const bool cand = proc && (hitd >= mmin) && ((hitd - th <= mmax) || backray);
+    const int mini = min((iy / 16) * minis_x + ix / 32 + combo_off, n_mini_words - 1);
+    bool cand;
+    if (DUAL) {
+      const uint32_t word = __ldg(mini_table + mini);
+      const float mmin = half_bits_to_float(word);
+      const float umax = half_bits_to_float(word >> 16);
+      const float bmax = half_bits_to_float(__ldg(dual.bmax_table + mini));
+      const float margin = fmaxf(th, step);
+      cand = proc && (hitd >= mmin) &&
+             ((hitd - margin <= umax) || searchlane || (hitd <= bmax));
+    } else {
+      const uint32_t word = s_mini[mini];
+      const float mmin = half_bits_to_float(word);
+      const float mmax = half_bits_to_float(word >> 16);
+      cand = proc && (hitd >= mmin) && ((hitd - th <= mmax) || backray);
+    }
 
     if (cand) {
       if (run < k) {
@@ -133,6 +175,7 @@ __global__ void schedule_pack_kernel(
         pk_cum[o] = cum;
         pk_scode[o] = scode;
         pk_hist[o] = hist;
+        if (DUAL) dual.pk_step[o] = q40(step, 4095.0f);
       }
       ++run;
     }
@@ -153,6 +196,7 @@ __global__ void schedule_pack_kernel(
     pk_cum[o] = 0.0f;
     pk_scode[o] = 0.0f;
     pk_hist[o] = 0.0f;
+    if (DUAL) dual.pk_step[o] = 0.0f;
   }
   n_cand[lane] = cnt;
 }
@@ -171,20 +215,51 @@ extern "C" int sspt_schedule_pack(
   const size_t smem = static_cast<size_t>(n_mini_words) * sizeof(uint32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        schedule_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        schedule_pack_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (n > 0) {
     const int threads = 128;
     const int blocks = (n + threads - 1) / threads;
-    schedule_pack_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+    const DualArgs none = {nullptr, nullptr, nullptr, nullptr, 0};
+    schedule_pack_kernel<false><<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(ray_pos), static_cast<const float*>(ray_dir),
         static_cast<const float*>(dither), static_cast<const float*>(large_step),
         static_cast<const uint8_t*>(alive), static_cast<const uint8_t*>(is_back),
         static_cast<const uint32_t*>(mini_table), static_cast<const float*>(scalars),
         static_cast<float*>(pk_cum), static_cast<float*>(pk_scode),
-        static_cast<float*>(pk_hist), static_cast<int32_t*>(n_cand), n, gh, gw,
+        static_cast<float*>(pk_hist), static_cast<int32_t*>(n_cand), none, n, gh, gw,
+        minis_x, n_mini_words, s_max, k, max_small, max_medium, small_step,
+        medium_step, thickness, th_inc, step_growth, th_cap, texel_x, texel_y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sspt_schedule_pack_dual(
+    const void* ray_pos, const void* ray_dir, const void* dither,
+    const void* large_step, const void* alive, const void* combo,
+    const void* search, const void* mini_table, const void* bmax_table,
+    const void* scalars, void* pk_cum, void* pk_scode, void* pk_hist,
+    void* pk_step, void* n_cand, int n, int gh, int gw, int minis_x,
+    int n_mini_words, int combo_words, int s_max, int k, int max_small,
+    int max_medium, float small_step, float medium_step, float thickness,
+    float th_inc, float step_growth, float th_cap, float texel_x,
+    float texel_y, void* stream) {
+  if (n > 0) {
+    const int threads = 128;
+    const int blocks = (n + threads - 1) / threads;
+    const DualArgs dual = {
+        static_cast<const int32_t*>(combo), static_cast<const uint8_t*>(search),
+        static_cast<const uint32_t*>(bmax_table), static_cast<float*>(pk_step),
+        combo_words};
+    schedule_pack_kernel<true><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(ray_pos), static_cast<const float*>(ray_dir),
+        static_cast<const float*>(dither), static_cast<const float*>(large_step),
+        static_cast<const uint8_t*>(alive), nullptr,
+        static_cast<const uint32_t*>(mini_table), static_cast<const float*>(scalars),
+        static_cast<float*>(pk_cum), static_cast<float*>(pk_scode),
+        static_cast<float*>(pk_hist), static_cast<int32_t*>(n_cand), dual, n, gh, gw,
         minis_x, n_mini_words, s_max, k, max_small, max_medium, small_step,
         medium_step, thickness, th_inc, step_growth, th_cap, texel_x, texel_y);
   }

@@ -1,10 +1,10 @@
-"""G-buffer container and the opaque surface decode
+"""G-buffer container and the surface decode
 (HitSurfaceDataFromGBuffer, PathTracingUtilities.hlsl:115-211).
 
 Images are (H, W, C) or (H, W) tensors with row 0 at the bottom; depth
-holds raw reversed-Z device depth (0.0 = sky). The transparent, backface
-and motion layers of the JAX ``GBuffers`` belong to the refraction /
-backface variants and the real-time modes (ROADMAP Queue 1 items 9, 10).
+holds raw reversed-Z device depth (0.0 = sky). The transparent and
+backface layers feed the refraction / backface variants; the motion
+layer belongs to the real-time modes (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from .config import PTVariants
 
 MATERIAL_FLAG_SPECULAR_SETUP = 8
+SURFACE_TYPE_REFRACTION = 2  # kSurfaceTypeRefraction (transparent G-buffer flag)
 DIELECTRIC_SPEC = 0.04
 
 
@@ -30,6 +31,13 @@ class GBuffers:
     emission: torch.Tensor  # (H, W, 3)
     depth: torch.Tensor  # (H, W) raw reversed-Z
     depth_layer1: Optional[torch.Tensor] = None  # depth incl. first transparent layer
+    back_depth: Optional[torch.Tensor] = None  # (H, W) backface raw depth
+    back_normal: Optional[torch.Tensor] = None  # (H, W, 3) backface normals
+    t_albedo: Optional[torch.Tensor] = None  # (H, W, 3) TransparentGBuffer0.rgb
+    t_ior_raw: Optional[torch.Tensor] = None  # (H, W) ior = raw * 2 + 0.921875
+    t_surface_type: Optional[torch.Tensor] = None  # (H, W) int64
+    t_normal: Optional[torch.Tensor] = None  # (H, W, 3)
+    t_smoothness: Optional[torch.Tensor] = None  # (H, W)
 
     @property
     def height(self) -> int:
@@ -45,6 +53,14 @@ class GBuffers:
 
     def layer1_depth(self) -> torch.Tensor:
         return self.depth if self.depth_layer1 is None else self.depth_layer1
+
+    def back_normal_at(self, fetch):
+        """(back normal, has-normal flag) through ``fetch``; None without
+        the layer."""
+        if self.back_normal is None:
+            return None
+        bn = fetch(self.back_normal)
+        return bn, torch.any(bn != 0.0, dim=-1)
 
 
 @dataclasses.dataclass
@@ -90,18 +106,65 @@ def opaque_surface(albedo, flags, g1, normal, smoothness, emission, inside_objec
     )
 
 
+def flip_to_back(normal, back_normal):
+    """The normal a ray inside an object or hitting a back face sees: the
+    negated back normal where the texel has one, else the negated normal
+    (ref PathTracing.hlsl:219-232, PathTracingUtilities.hlsl:146-161).
+    ``back_normal`` is ``back_normal_at``'s pair, or None."""
+    if back_normal is None:
+        return -normal
+    bn, has_bn = back_normal
+    return torch.where(has_bn[..., None], -bn, -normal)
+
+
+def transparent_surface(surf: SurfaceData, inside_object, is_refractive, t_albedo,
+                        t_ior, t_normal, t_smooth, back_normal):
+    """The transparent path (ref :125-167) over already fetched layers:
+    while the ray is not about to exit (insideObject != 2) a refractive
+    texel replaces the opaque surface. A ray inside the object
+    (insideObject == 1) sees ``flip_to_back`` of the transparent normal
+    (ref :146-161). The state machine steps 0 -> 1 -> 2 -> 0 (ref :166)."""
+    use_t = (inside_object != 2.0) & is_refractive
+    t_normal = torch.where((inside_object == 1.0)[..., None],
+                           flip_to_back(t_normal, back_normal), t_normal)
+    use3 = use_t[..., None]
+    stepped = torch.where(inside_object == 2.0, torch.zeros_like(inside_object),
+                          inside_object + 1.0)
+    return SurfaceData(
+        albedo=torch.where(use3, t_albedo, surf.albedo),
+        specular=torch.where(use3, torch.full_like(surf.specular, DIELECTRIC_SPEC),
+                             surf.specular),
+        normal=torch.where(use3, t_normal, surf.normal),
+        emission=torch.where(use3, torch.zeros_like(surf.emission), surf.emission),
+        smoothness=torch.where(use_t, t_smooth, surf.smoothness),
+        ior=torch.where(use_t, t_ior, surf.ior),
+        inside_object=torch.where(use_t, stepped, inside_object),
+    )
+
+
 def hit_surface_from_gbuffer(gb: GBuffers, uv, inside_object, variants: PTVariants,
-                             direct: bool = False):
+                             back_depth_enabled: int = 0, direct: bool = False):
     """Material data at ``uv``; ``direct=True`` reads the images as they
-    are (valid only when ``uv`` is the full pixel grid: the primary hit)."""
+    are (valid only when ``uv`` is the full pixel grid: the primary hit).
+    The transparent path runs under refraction when the G-buffer has a
+    transparent layer; ``back_depth_enabled == 2`` (DepthNormals) lets
+    rays inside an object take the backface normal."""
     variants.check_supported()
     if direct:
         fetch = lambda img: img  # noqa: E731
     else:
         iy, ix = uv_to_pixel(uv, gb.height, gb.width)
         fetch = lambda img: gather2d(img, iy, ix)  # noqa: E731
-    return opaque_surface(
+    surf = opaque_surface(
         fetch(gb.albedo), fetch(gb.material_flags), fetch(gb.gbuffer1),
         fetch(gb.normal), fetch(gb.smoothness), fetch(gb.emission),
         inside_object,
+    )
+    if not (variants.support_refraction and gb.t_surface_type is not None):
+        return surf
+    back_normal = gb.back_normal_at(fetch) if back_depth_enabled == 2 else None
+    return transparent_surface(
+        surf, inside_object, fetch(gb.t_surface_type) == SURFACE_TYPE_REFRACTION,
+        fetch(gb.t_albedo), fetch(gb.t_ior_raw) * 2.0 + 0.921875,
+        fetch(gb.t_normal), fetch(gb.t_smoothness), back_normal,
     )

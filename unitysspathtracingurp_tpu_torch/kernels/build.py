@@ -1,6 +1,7 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc``
+process per source, all started together, and linked into one shared
 library with a plain C interface, at first use, into ``build/kernels/``
 beside the package, under a name keyed on a hash of the sources and
 flags. The library is loaded with ``ctypes``; every entry point returns
@@ -29,7 +30,7 @@ SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -42,10 +43,21 @@ _SIGNATURES = {
     # floats small_step, medium_step, thickness, th_inc, step_growth,
     # th_cap, texel_x, texel_y; stream.
     "sspt_schedule_pack": [P] * 12 + [I] * 9 + [F] * 8 + [P],
+    # pointers: ray_pos, ray_dir, dither, large_step, alive, combo,
+    # search, mini_table, bmax_table, scalars, pk_cum, pk_scode, pk_hist,
+    # pk_step, n_cand; ints n, gh, gw, minis_x, n_mini_words,
+    # combo_words, s_max, k, max_small, max_medium; the same 8 floats;
+    # stream.
+    "sspt_schedule_pack_dual": [P] * 15 + [I] * 10 + [F] * 8 + [P],
     # pointers: pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir,
     # is_back, pair_table, scalars, out; ints n, k, gh, gw, pairs_x,
     # n_rounds, chain, s_max; stream.
     "sspt_resolve_rounds": [P] * 10 + [I] * 8 + [P],
+    # pointers: pk_cum, pk_scode, pk_hist, pk_step, n_cand, ray_pos,
+    # ray_dir, is_back, combo, search, tile_table, scalars, out; ints n,
+    # k, gh, gw, tiles_x, tiles_per_combo, n_rounds, chain, s_max,
+    # has_back; stream.
+    "sspt_resolve_rounds_dual": [P] * 13 + [I] * 10 + [P],
 }
 
 
@@ -78,15 +90,29 @@ def load_library() -> ctypes.CDLL:
                 "CUDA kernels cannot be built"
             )
         so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [so.parent / f"{tag}.{src.stem}.o" for src in sorted(SRC_DIR.glob("*.cu"))]
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for obj, src in zip(objs, sorted(SRC_DIR.glob("*.cu")))]
+            done = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+            failed = [(src, rc, out) for src, out, rc in done if rc != 0]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"{src} ({rc}):\n{out}" for src, rc, out in failed))
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                                   f"{link.stdout}\n{link.stderr}")
+            os.replace(tmp, so)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

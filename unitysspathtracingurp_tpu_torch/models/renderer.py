@@ -24,13 +24,15 @@ from ..config import DenoiserType, PTConfig, PTSettings
 from ..gbuffer import GBuffers
 from ..ops.accumulate import OfflineAccumState, add_convergence_cue, offline_accumulate
 from ..ops.envprobe import ProbeSet, constant_probe
+from ..ops.depth_tiles import variant_combos
 from ..ops.pathtrace_hiz import build_tiles_for, trace_frame_hiz
 from ..ops.rng import advance_frame_index
 
 
 class Renderer:
     """Stateful frame renderer; call ``render_frame(gbuffers, camera)``
-    once per frame. Every tensor lives on ``device``."""
+    once per frame. Every tensor lives on ``device``: the card unless the
+    caller passes ``device="cpu"``."""
 
     def __init__(
         self,
@@ -41,7 +43,7 @@ class Renderer:
         probes: Optional[ProbeSet] = None,
         display_size: Optional[tuple] = None,
         mesh=None,
-        device="cpu",
+        device="cuda",
     ):
         settings.validate()
         cfg.check_supported()
@@ -56,16 +58,19 @@ class Renderer:
         self.settings = settings
         self.cfg = cfg
         self.variants = settings.variants().check_supported()
+        # ThicknessMode value: 2 (DepthNormals) lets back normals feed the
+        # inside-object and back-hit normal flips.
+        self.back_depth_enabled = int(settings.accurate_thickness.value)
         self.height, self.width = height, width
         self.device = torch.device(device)
         self.probes = (
-            probes or ProbeSet(probe0=constant_probe([0.0, 0.0, 0.0]))
+            probes or ProbeSet(probe0=constant_probe([0.0, 0.0, 0.0], device=self.device))
         ).to(self.device)
         self.frame_index = 0
         self.paused = False
         self.max_sample = settings.maximum_samples
         self._tiles = None
-        self._tiles_key = None  # (depth tensor held by reference, near, far)
+        self._tiles_key = None  # (depth tensors held by reference, near, far)
         self.offline_state = OfflineAccumState.create(height, width, device=self.device)
         self._prev_vp: Optional[np.ndarray] = None
         self._scene_key = None
@@ -83,15 +88,24 @@ class Renderer:
     def sample(self) -> int:
         return self.offline_state.sample
 
+    def _depth_sources(self, gb: GBuffers):
+        """Every depth image the tiles read: layer-1 for the plain layout,
+        each combo's test and back image for the dual one."""
+        if not (self.variants.backface_textures or self.variants.support_refraction):
+            return (gb.layer1_depth(),)
+        return tuple(img for pair in variant_combos(gb, self.variants) for img in pair)
+
     def _get_tiles(self, gb: GBuffers, cam: Camera):
-        """Depth tiles, rebuilt only when the depth buffer (by identity)
-        or the clip range changes."""
-        src = gb.layer1_depth()
+        """Depth tiles, rebuilt only when a depth image they read (by
+        identity) or the clip range changes."""
+        srcs = self._depth_sources(gb)
         near, far = float(cam.near), float(cam.far)
         key = self._tiles_key
-        if self._tiles is None or key[0] is not src or key[1:] != (near, far):
+        if (self._tiles is None or len(key[0]) != len(srcs)
+                or any(a is not b for a, b in zip(key[0], srcs))
+                or key[1:] != (near, far)):
             self._tiles = build_tiles_for(gb, cam, self.variants)
-            self._tiles_key = (src, near, far)
+            self._tiles_key = (srcs, near, far)
         return self._tiles
 
     def render_frame(self, gb: GBuffers, cam: Camera, scene_key=None):
@@ -105,7 +119,8 @@ class Renderer:
         else:
             traced = trace_frame_hiz(
                 gb, cam, self.probes, self.settings, self.cfg, self.variants,
-                self.frame_index, tiles=self._get_tiles(gb, cam),
+                self.frame_index, back_depth_enabled=self.back_depth_enabled,
+                tiles=self._get_tiles(gb, cam),
             )
             self.offline_state = offline_accumulate(
                 self.offline_state, traced, self.max_sample, self.paused

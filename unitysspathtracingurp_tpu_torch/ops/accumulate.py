@@ -22,7 +22,7 @@ class OfflineAccumState:
     sample: int  # samples accumulated so far
 
     @classmethod
-    def create(cls, height: int, width: int, device="cpu"):
+    def create(cls, height: int, width: int, device="cuda"):
         return cls(accum=torch.zeros((height, width, 3), dtype=torch.float32,
                                      device=device), sample=0)
 

@@ -43,6 +43,19 @@ def reflect(incident, normal):
     return incident - 2.0 * dot3(incident, normal)[..., None] * normal
 
 
+def refract(incident, normal, eta):
+    """Snell refraction of a unit ``incident`` (into the surface).
+    Returns (direction, valid); on total internal reflection the
+    direction is zero and valid is False (HLSL refract()'s null vector,
+    PathTracing.hlsl:293-303)."""
+    cos_i = -dot3(incident, normal)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    valid = k >= 0.0
+    d = eta[..., None] * incident + (eta * cos_i - torch.sqrt(torch.clamp(k, min=0.0)))[
+        ..., None] * normal
+    return torch.where(valid[..., None], d, torch.zeros_like(d)), valid
+
+
 def get_local_frame(normal):
     """Branchless orthonormal basis (Duff et al. 2017)."""
     x, y, z = normal[..., 0], normal[..., 1], normal[..., 2]
@@ -125,6 +138,15 @@ def sample_ggx_dir(u, view, frame, roughness):
     ndotl = local_l[..., 2]
     light = to_world(local_l, frame)
     return light, ndotl, ndoth, vdoth
+
+
+def sample_ggx_ndf(u, view, frame, roughness):
+    """GGX microfacet normal only (PathTracingUtilities.hlsl:214-251):
+    (H, NdotH, VdotH)."""
+    cos_theta = sample_ggx_cos_theta(u[..., 0], roughness)
+    local_h = spherical_to_cartesian(TWO_PI * u[..., 1], cos_theta)
+    vdoth = saturate(dot3(to_local(view, frame), local_h))
+    return to_world(local_h, frame), cos_theta, vdoth
 
 
 def importance_sample_ggx_pdf(u, view, frame, roughness, ndotv):

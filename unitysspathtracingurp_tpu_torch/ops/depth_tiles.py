@@ -1,4 +1,6 @@
-"""Tiled + hierarchical depth structures for the hiz march, plain layout.
+"""Tiled + hierarchical depth structures for the hiz march.
+
+Plain layout (``DepthTiles``, the no-refraction / no-backface variants):
 
   * ``pair_table`` (NP, 128): each row covers a pair of horizontally
     adjacent 16x8-texel tiles; word w holds texel w of the left tile's
@@ -8,9 +10,14 @@
     linear eye depth (sky linearises to ``far``), conservatively
     rounded to f16, packed f16(min) | f16(max) << 16.
 
-Both hold uint32 bit patterns in int32 tensors (the JAX package keeps
-the same bits in f32 arrays). Bit-identical to
-``unitysspathtracingurp_tpu.ops.depth_tiles.build_depth_tiles``.
+Dual layout (``DualDepthTiles``, the refraction / backface variants):
+one (test, back) depth-image pair per insideObject combo, see
+``variant_combos``.
+
+All tables hold uint32 bit patterns in int32 tensors (the JAX package
+keeps the same bits in f32 arrays). Bit-identical to
+``unitysspathtracingurp_tpu.ops.depth_tiles``'s ``build_depth_tiles``
+and ``build_dual_depth_tiles``.
 """
 
 from __future__ import annotations
@@ -37,6 +44,49 @@ class DepthTiles:
     tiles_y: int
     pairs_x: int
     minis_x: int
+
+    @property
+    def n_mini_chunks(self) -> int:
+        return self.mini_table.shape[0]
+
+
+@dataclasses.dataclass
+class DualDepthTiles:
+    """Per-combo dual-layer depth tables (PathTracing.hlsl:79-98 layer
+    selection, :111-136 backface thickness rules).
+
+      combo 0 (inside == 0): (layer1, back)
+      combo 1 (inside == 1): (back, opaque)    [refraction + backface]
+      combo 2 (inside == 2): (opaque, back)    [refraction + backface]
+      refraction only:       (layer1, none) / (opaque, none)
+      backface only:         (layer1, back)
+
+    ``tile_table`` rows hold one 16x8 tile per combo, one word per
+    texel: low f16 = test-layer raw depth, high f16 = back-layer raw
+    depth (0 = no back data). Row = combo * tiles_per_combo + tile.
+    ``mini_table`` packs per 32x16-px minitile and combo
+    f16(mmin) | f16(umax) << 16, umax the max over texels of
+    (back valid ? max(back, test) : test) in linear depth; ``bmax_table``
+    the max valid back depth (-inf where none) in its low half.
+    """
+
+    tile_table: torch.Tensor  # (n_combos * NT, 128) int32 bits: test | back << 16
+    mini_table: torch.Tensor  # (n_combos * chunks, 128) int32 bits: mmin | umax << 16
+    bmax_table: torch.Tensor  # (n_combos * chunks, 128) int32 bits: f16 bmax
+    height: int
+    width: int
+    tiles_x: int
+    tiles_y: int
+    minis_x: int
+    n_combos: int
+
+    @property
+    def tiles_per_combo(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+    @property
+    def chunks_per_combo(self) -> int:
+        return self.mini_table.shape[0] // self.n_combos
 
     @property
     def n_mini_chunks(self) -> int:
@@ -103,6 +153,89 @@ def build_depth_tiles(depth, near, far) -> DepthTiles:
         pairs_x=px_n,
         minis_x=mx_n,
     )
+
+
+def _tile_layout(img, h: int, w: int):
+    """(H, W) -> (ty, tx, 128) single-tile texel layout, sky-padded."""
+    pad_y = (-h) % (TILE_H * MINI_TY)
+    pad_x = (-w) % (TILE_W * MINI_TX)
+    d = torch.nn.functional.pad(img, (0, pad_x, 0, pad_y))
+    ty, tx = (h + pad_y) // TILE_H, (w + pad_x) // TILE_W
+    return d.reshape(ty, TILE_H, tx, TILE_W).permute(0, 2, 1, 3).reshape(
+        ty, tx, TILE_H * TILE_W), ty, tx
+
+
+def _mini_reduce(per_tile, reduce, my_n, mx_n):
+    """(ty, tx) per-tile values -> flat per-minitile values."""
+    r = per_tile.reshape(my_n, MINI_TY, mx_n, MINI_TX)
+    return (r.amin(dim=(1, 3)) if reduce == "min" else r.amax(dim=(1, 3))).reshape(-1)
+
+
+def build_dual_depth_tiles(combos, near, far, height: int, width: int) -> DualDepthTiles:
+    """DualDepthTiles from per-combo (test_depth, back_depth) raw images;
+    ``back_depth`` None packs the sky sentinel 0 (no back data, so the
+    hit rule reduces to the plain thickness window)."""
+    tile_rows, mini_rows, bmax_rows = [], [], []
+    ty = tx = mx_n = 0
+    for test, back in combos:
+        tiles_t, ty, tx = _tile_layout(test, height, width)
+        back_b = torch.zeros_like(tiles_t) if back is None else _tile_layout(back, height, width)[0]
+        tile_rows.append(f16_bits(tiles_t) | (f16_bits(back_b) << 16))
+
+        lin_t = linear_eye_depth(tiles_t, near, far)
+        lin_b = linear_eye_depth(back_b, near, far)
+        back_ok = (back_b != 0.0) & (lin_b >= lin_t)
+        upper = torch.where(back_ok, torch.maximum(lin_b, lin_t), lin_t)
+        tmin = torch.amin(lin_t, dim=2) * (1.0 - 2.0**-9)
+        tumax = torch.amax(upper, dim=2) * (1.0 + 2.0**-9)
+        tbmax = torch.amax(
+            torch.where(back_ok, lin_b, torch.full_like(lin_b, float("-inf"))), dim=2
+        ) * (1.0 + 2.0**-9)
+        mx_n, my_n = tx // MINI_TX, ty // MINI_TY
+        n_mini = my_n * mx_n
+        m_chunks = -(-n_mini // 128)
+        padn = m_chunks * 128 - n_mini
+        pad = torch.nn.functional.pad
+        mmin = pad(_mini_reduce(tmin, "min", my_n, mx_n), (0, padn), value=float("inf"))
+        mumax = pad(_mini_reduce(tumax, "max", my_n, mx_n), (0, padn), value=float("-inf"))
+        mbmax = pad(_mini_reduce(tbmax, "max", my_n, mx_n), (0, padn), value=float("-inf"))
+        mini_rows.append((f16_bits(mmin) | (f16_bits(mumax) << 16)).reshape(m_chunks, 128))
+        bmax_rows.append(f16_bits(mbmax).reshape(m_chunks, 128))
+    return DualDepthTiles(
+        tile_table=as_int32_bits(torch.cat(tile_rows, 0).reshape(-1, TILE_H * TILE_W)),
+        mini_table=as_int32_bits(torch.cat(mini_rows, 0)),
+        bmax_table=as_int32_bits(torch.cat(bmax_rows, 0)),
+        height=height, width=width, tiles_x=tx, tiles_y=ty, minis_x=mx_n,
+        n_combos=len(combos),
+    )
+
+
+def variant_combos(gb, variants):
+    """The (test, back) depth-image combos of a variant set, indexed by
+    the per-lane insideObject state (PathTracing.hlsl:79-98)."""
+    layer1 = gb.layer1_depth()
+    back = gb.back_depth if variants.backface_textures else None
+    if variants.support_refraction:
+        if back is not None:
+            return [(layer1, back), (back, gb.depth), (gb.depth, back)]
+        return [(layer1, None), (gb.depth, None)]  # no back data: 2 layers
+    return [(layer1, back)]
+
+
+def tile_of(ix, iy, tiles_x: int):
+    """(tile_row, texel_word) of pixel (iy, ix) in single-tile rows."""
+    return (iy // TILE_H) * tiles_x + (ix // TILE_W), (iy % TILE_H) * TILE_W + (ix % TILE_W)
+
+
+def unpack_dual(words):
+    """Dual tile words (int32 bits) -> (test_raw, back_raw) f32."""
+    u = u32_from_int32(words)
+    return f16_from_bits(u & 0xFFFF), f16_from_bits(u >> 16)
+
+
+def unpack_f16_low(words):
+    """The low f16 half (bmax_table entries) -> f32."""
+    return f16_from_bits(u32_from_int32(words) & 0xFFFF)
 
 
 def unpack_minmax(words):

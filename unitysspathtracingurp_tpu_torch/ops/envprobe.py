@@ -73,7 +73,7 @@ class ProbeSet:
         return ProbeSet(**{f.name: mv(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
 
-def constant_probe(color, resolution: int = 1, device="cpu") -> EnvProbe:
+def constant_probe(color, resolution: int = 1, device="cuda") -> EnvProbe:
     color = torch.as_tensor(np.asarray(color, np.float32), device=device)
     z3 = torch.zeros(3, dtype=torch.float32, device=device)
     return EnvProbe(

@@ -2,16 +2,20 @@
 
 ``schedule_pack`` is the wrapper of kernel K1 (``csrc/schedule_pack.cu``),
 the counterpart of ``unitysspathtracingurp_tpu.ops.fused_schedule.
-fused_schedule_pack`` in its plain-layout mode. ``schedule_pack_ref`` is
-its plain PyTorch version: the torch port of the JAX package's unfused
-phases 1-3 (``ops/pathtrace_hiz.py:293-464``), streamed step by step
-instead of stacked over (S, N).
+fused_schedule_pack`` in its plain-layout mode; ``schedule_pack_dual``
+wraps kernel K4, the same source's dual mode (``DualDepthTiles``: the
+refraction / backface variants). ``schedule_pack_ref`` and
+``schedule_pack_dual_ref`` are their plain PyTorch versions: the torch
+port of the JAX package's unfused phases 1-3
+(``ops/pathtrace_hiz.py:293-464``), streamed step by step instead of
+stacked over (S, N).
 
 Outputs, per lane n and slot j < K: ``pk_cum[j, n]`` (march distance),
 ``pk_scode[j, n]`` = step + 65*(prev_step + 1) + 8192*q40(thickness),
 ``pk_hist[j, n]`` = 4096*q40(last_cumdist) + q40(last_hitdepth), zero
 past the lane's count; ``n_cand[n]`` the count clamped to K. q40 is
-round-half-even to 2.5 cm.
+round-half-even to 2.5 cm. The dual mode adds ``pk_step[j, n]`` =
+q40(step), the step size the backed hit window needs (hlsl:181).
 
 The wrapper picks by device: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel or raises.
@@ -42,6 +46,18 @@ def schedule_scalars(cam) -> torch.Tensor:
     ]).contiguous()
 
 
+def march_kwargs(cfg, tiles, s_max: int) -> dict:
+    """The keyword arguments K1 and K4 (and their plain versions) take
+    from a ``PTConfig`` and the depth tiles, for ``s_max`` steps."""
+    return dict(
+        gh=tiles.height, gw=tiles.width, minis_x=tiles.minis_x, s_max=s_max,
+        k=min(16, s_max), max_small_step=cfg.max_small_step,
+        max_medium_step=cfg.max_medium_step, small_step_size=cfg.small_step_size,
+        medium_step_size=cfg.medium_step_size, marching_thickness=cfg.marching_thickness,
+        step_growth=cfg.step_growth, thickness_growth=cfg.thickness_growth,
+    )
+
+
 def thickness_cap(marching_thickness: float, thickness_growth: float, s_max: int) -> float:
     return float(math.ceil(40.0 * marching_thickness * (1.0 + thickness_growth * s_max)))
 
@@ -64,12 +80,13 @@ def pixel_index(t, size: int):
     return torch.clamp(torch.floor(t * size).to(torch.int64), 0, size - 1)
 
 
-def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
-                      mini_table, scalars, *, gh, gw, minis_x, s_max, k,
-                      max_small_step, max_medium_step, small_step_size,
-                      medium_step_size, marching_thickness, step_growth,
-                      thickness_growth):
-    """Plain PyTorch version of K1 (lanes on the leading axis, N lanes)."""
+def _pack_plain(ray_pos, ray_dir, dither, large_step, alive, is_back, mini_table,
+                scalars, dual, *, gh, gw, minis_x, s_max, k, max_small_step,
+                max_medium_step, small_step_size, medium_step_size,
+                marching_thickness, step_growth, thickness_growth):
+    """The plain versions of K1 (``dual`` None) and K4 (``dual`` =
+    (combo, search, bmax_table, chunks_per_combo)), lanes on the leading
+    axis, N lanes."""
     n = ray_pos.shape[0]
     dev = ray_pos.device
     m = [scalars[i] for i in range(16)]
@@ -78,6 +95,10 @@ def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
     th_cap = thickness_cap(marching_thickness, thickness_growth, s_max)
     th_inc = f32(marching_thickness * thickness_growth)
     mini_words = mini_table.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    if dual is not None:
+        combo, search, bmax_table, chunks_per_combo = dual
+        combo_off = combo.to(torch.int64) * (chunks_per_combo * 128)
+        bmax_words = bmax_table.reshape(-1).to(torch.int64) & 0xFFFFFFFF
 
     px, py, pz = ray_pos[:, 0], ray_pos[:, 1], ray_pos[:, 2]
     dx, dy, dz = ray_dir[:, 0], ray_dir[:, 1], ray_dir[:, 2]
@@ -93,7 +114,8 @@ def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
     lane = torch.arange(n, device=dev)
     # Slot j of lane n lives at flat j*n + n; one spare word takes the
     # writes of non-packing lanes.
-    outs = [torch.zeros(k * n + 1, dtype=torch.float32, device=dev) for _ in range(3)]
+    n_fields = 3 if dual is None else 4
+    outs = [torch.zeros(k * n + 1, dtype=torch.float32, device=dev) for _ in range(n_fields)]
 
     for i in range(1, s_max + 1):
         if i == max_small_step + 1:
@@ -119,16 +141,31 @@ def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
         ix = pixel_index(u, gw)
         iy = pixel_index(v, gh)
         hitd = 1.0 / (raw * zz + zw)
-        word = mini_words[mini_of(ix, iy, minis_x)]
-        mmin = f16_from_bits(word & 0xFFFF)
-        mmax = f16_from_bits(word >> 16)
-        cand = proc & (hitd >= mmin) & ((hitd - th <= mmax) | is_back)
+        mini = mini_of(ix, iy, minis_x)
+        if dual is None:
+            word = mini_words[mini]
+            mmin = f16_from_bits(word & 0xFFFF)
+            mmax = f16_from_bits(word >> 16)
+            cand = proc & (hitd >= mmin) & ((hitd - th <= mmax) | is_back)
+        else:
+            # Conservative dual rule (pathtrace_hiz.py:398-404): the backed
+            # window's margin is max(th, step); search lanes and front
+            # rays below the minitile's max back depth escape the window.
+            mini = mini + combo_off
+            word = mini_words[mini]
+            mmin = f16_from_bits(word & 0xFFFF)
+            umax = f16_from_bits(word >> 16)
+            bmax = f16_from_bits(bmax_words[mini] & 0xFFFF)
+            margin = torch.maximum(th, step)
+            cand = proc & (hitd >= mmin) & (
+                (hitd - margin <= umax) | search | (hitd <= bmax))
 
         scode = float(i - 1) + 65.0 * (pidx + 1.0) + _q40(th, th_cap) * 8192.0
         hist = _q40(lcum, 4095.0) * 4096.0 + _q40(lhd, 4095.0)
+        vals = (cum, scode, hist) if dual is None else (cum, scode, hist, _q40(step, 4095.0))
         pack = cand & (run < k)
         dst = torch.where(pack, run * n + lane, torch.full_like(lane, k * n))
-        for out, val in zip(outs, (cum, scode, hist)):
+        for out, val in zip(outs, vals):
             out.scatter_(0, dst, val)
         run = run + cand.to(torch.int64)
 
@@ -142,7 +179,38 @@ def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
         marching = marching & ~exit_now
 
     pk = [o[: k * n].reshape(k, n) for o in outs]
-    return pk[0], pk[1], pk[2], torch.clamp(run, max=k).to(torch.int32)
+    return (*pk, torch.clamp(run, max=k).to(torch.int32))
+
+
+def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
+                      mini_table, scalars, **params):
+    """Plain PyTorch version of K1: (pk_cum, pk_scode, pk_hist, n_cand)."""
+    return _pack_plain(ray_pos, ray_dir, dither, large_step, alive, is_back,
+                       mini_table, scalars, None, **params)
+
+
+def schedule_pack_dual_ref(ray_pos, ray_dir, dither, large_step, alive, combo, search,
+                           mini_table, bmax_table, scalars, *, chunks_per_combo,
+                           **params):
+    """Plain PyTorch version of K4: (pk_cum, pk_scode, pk_hist, pk_step,
+    n_cand). ``combo`` (N,) int picks each lane's table rows, ``search``
+    (N,) bool marks the lanes that may run the binary search."""
+    return _pack_plain(ray_pos, ray_dir, dither, large_step, alive, None, mini_table,
+                       scalars, (combo, search, bmax_table, chunks_per_combo), **params)
+
+
+def _march_params(p):
+    """The scalar march parameters every schedule kernel entry takes,
+    f32-rounded as JAX rounds weak-typed Python floats."""
+    return (
+        p["s_max"], p["k"], p["max_small_step"], p["max_medium_step"],
+        f32(p["small_step_size"]), f32(p["medium_step_size"]),
+        f32(p["marching_thickness"]),
+        f32(p["marching_thickness"] * p["thickness_growth"]),
+        f32(p["step_growth"]),
+        thickness_cap(p["marching_thickness"], p["thickness_growth"], p["s_max"]),
+        f32(1.0 / p["gw"]), f32(1.0 / p["gh"]),
+    )
 
 
 def schedule_pack(ray_pos, ray_dir, dither, large_step, alive, is_back,
@@ -174,20 +242,52 @@ def schedule_pack(ray_pos, ray_dir, dither, large_step, alive, is_back,
     pk_scode = torch.empty_like(pk_cum)
     pk_hist = torch.empty_like(pk_cum)
     n_cand = torch.empty(n, dtype=torch.int32, device=dev)
-    p = params
     rc = lib.sspt_schedule_pack(
         *[t.data_ptr() for t in ins],
         pk_cum.data_ptr(), pk_scode.data_ptr(), pk_hist.data_ptr(), n_cand.data_ptr(),
-        n, p["gh"], p["gw"], p["minis_x"], mini_table.numel(), p["s_max"], k,
-        p["max_small_step"], p["max_medium_step"],
-        f32(p["small_step_size"]), f32(p["medium_step_size"]),
-        f32(p["marching_thickness"]),
-        f32(p["marching_thickness"] * p["thickness_growth"]),
-        f32(p["step_growth"]),
-        thickness_cap(p["marching_thickness"], p["thickness_growth"], p["s_max"]),
-        f32(1.0 / p["gw"]), f32(1.0 / p["gh"]),
-        stream_of(pk_cum),
+        n, params["gh"], params["gw"], params["minis_x"], mini_table.numel(),
+        *_march_params(params), stream_of(pk_cum),
     )
     check(rc, "schedule_pack")
     LAUNCHES["schedule_pack"] += 1
     return pk_cum, pk_scode, pk_hist, n_cand
+
+
+def schedule_pack_dual(ray_pos, ray_dir, dither, large_step, alive, combo, search,
+                       mini_table, bmax_table, scalars, *, chunks_per_combo, **params):
+    """K4 wrapper. CPU tensors: ``schedule_pack_dual_ref``. CUDA tensors:
+    the kernel, or an exception; there is no fallback."""
+    if ray_pos.device.type == "cpu":
+        return schedule_pack_dual_ref(
+            ray_pos, ray_dir, dither, large_step, alive, combo, search, mini_table,
+            bmax_table, scalars, chunks_per_combo=chunks_per_combo, **params)
+    from ..kernels.build import LAUNCHES, check, load_library, require_cuda, stream_of
+
+    lib = load_library()
+    n, k = ray_pos.shape[0], params["k"]
+    ins = [
+        ray_pos.to(torch.float32).contiguous(), ray_dir.to(torch.float32).contiguous(),
+        dither.to(torch.float32).contiguous(), large_step.to(torch.float32).contiguous(),
+        alive.to(torch.uint8).contiguous(), combo.to(torch.int32).contiguous(),
+        search.to(torch.uint8).contiguous(), mini_table.to(torch.int32).contiguous(),
+        bmax_table.to(torch.int32).contiguous(), scalars.to(torch.float32).contiguous(),
+    ]
+    require_cuda("schedule_pack_dual", *ins)
+    if ins[0].shape != (n, 3) or ins[1].shape != (n, 3) or any(
+        t.shape != (n,) for t in ins[2:7]
+    ) or ins[8].shape != ins[7].shape or ins[9].numel() != 18:
+        raise RuntimeError("schedule_pack_dual: bad input shapes")
+    combo_words = chunks_per_combo * 128
+    if mini_table.numel() % combo_words:
+        raise RuntimeError("schedule_pack_dual: table not a whole number of combos")
+    dev = ray_pos.device
+    pk = [torch.empty((k, n), dtype=torch.float32, device=dev) for _ in range(4)]
+    n_cand = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.sspt_schedule_pack_dual(
+        *[t.data_ptr() for t in ins], *[t.data_ptr() for t in pk], n_cand.data_ptr(),
+        n, params["gh"], params["gw"], params["minis_x"], mini_table.numel(), combo_words,
+        *_march_params(params), stream_of(n_cand),
+    )
+    check(rc, "schedule_pack_dual")
+    LAUNCHES["schedule_pack_dual"] += 1
+    return (*pk, n_cand)

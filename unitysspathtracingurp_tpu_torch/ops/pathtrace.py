@@ -9,8 +9,9 @@ is the hiz march of ``ops/pathtrace_hiz.py``. The parity march
 Reference quirks the JAX package reproduces are reproduced here too:
 the lobe roulette can terminate a path (``roulette < p`` per lobe), the
 primary depth goes through LinearEyeDepth once per bounce
-(``sceneDistance``), and every lane advances the draw counter at every
-potential draw site.
+(``sceneDistance``), refraction's exit "absorption" is
+exp(+albedo * max(dist, 2.5)) (PathTracing.hlsl:307), and every lane
+advances the draw counter at every potential draw site.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from typing import NamedTuple
 import torch
 
 from ..camera import RAW_FAR_CLIP, linear_eye_depth, pixel_uv, world_from_uv_depth
-from ..gbuffer import hit_surface_from_gbuffer
+from ..gbuffer import flip_to_back, gather2d, hit_surface_from_gbuffer, uv_to_pixel
 from ..gbuffer_packed import hit_surface_from_packed, pack_gbuffers
 from ..utils.image import clamp_brightness_hsv
 from . import brdf
-from .brdf import dot3, normalize, saturate
+from .brdf import dot3, norm3, normalize, saturate
 from .envprobe import sample_reflection_probes
 from .rng import draw, draw2, make_rng
 
@@ -48,17 +49,29 @@ class BRDFResult(NamedTuple):
     rng: object
 
 
-def evaluate_brdf(cfg, rng, ray_dir, ray_pos, energy, hit, surf, hit_pos,
-                  primary_pos, probes) -> BRDFResult:
-    """EvaluateBRDF (PathTracing.hlsl:256-383) for opaque surfaces.
+def evaluate_brdf(cfg, variants, rng, ray_dir, ray_pos, energy, hit, surf, hit_pos,
+                  hit_dist, primary_pos, probes) -> BRDFResult:
+    """EvaluateBRDF (PathTracing.hlsl:256-383): on a hit, roulette-select
+    one lobe (refraction where ``surf.ior != -1``, else specular or
+    diffuse), update throughput and direction, return the hit's
+    emission; on a miss, zero the throughput and return the probe.
 
-    The refraction lobe is selected only where ``surf.ior != -1``, which
-    no opaque decode produces; it belongs to ROADMAP Queue 1 item 9.
-    The RNG draws are the same (draw2, then draw) either way."""
+    The refraction lobe (ref :282-310) exists only under the refraction
+    variants: elsewhere no decode produces an ior, its probability is 0
+    and the other lobes' arithmetic is the same. The RNG draws are the
+    same (draw2, then draw) either way."""
     view = -ray_dir
     ndotv = brdf.clamp_ndotv(dot3(surf.normal, view))
     spec_p = brdf.reflectivity_specular(torch.clamp(surf.specular, min=0.04))
-    diff_p = 1.0 - spec_p
+    refract_p = None
+    if variants.support_refraction:
+        do_refraction = surf.ior != -1.0
+        refract_p = torch.where(do_refraction, brdf.reflectivity_specular(surf.albedo),
+                                torch.zeros_like(spec_p))
+        spec_p = torch.where(do_refraction, 1.0 - refract_p, spec_p)
+        diff_p = 1.0 - spec_p - refract_p
+    else:
+        diff_p = 1.0 - spec_p
     perceptual_roughness = 1.0 - surf.smoothness
     roughness = perceptual_roughness * perceptual_roughness
 
@@ -86,7 +99,32 @@ def evaluate_brdf(cfg, rng, ray_dir, ray_pos, energy, hit, surf, hit_pos,
         diffuse_brdf * w_lambert[..., None] / torch.clamp(diff_p, min=1e-12)[..., None]
     )
 
+    # Lobe roulette, the reference's chain (ref :282, :311, :333): each
+    # test is roulette < p_lobe, so a path can end though the
+    # probabilities sum to one.
     sel_spec = (spec_p > 0.0) & (roulette < spec_p)
+    if refract_p is not None:
+        # Refraction lobe (ref :282-310): eta by the decoded inside state,
+        # Fresnel picks refraction or mirror reflection, and the exit
+        # "absorption" is exp(+albedo * max(dist, 2.5)) (ref :307).
+        inside = surf.inside_object
+        eta = torch.where(inside == 1.0, 1.0 / torch.clamp(surf.ior, min=1e-6), surf.ior)
+        _, _, vdoth_r = brdf.sample_ggx_ndf(random, view, frame, roughness)
+        fresnel = brdf.f_schlick_f90(0.04, torch.clamp(surf.smoothness, min=0.04), vdoth_r)
+        refr_dir, refr_valid = brdf.refract(ray_dir, surf.normal, eta)
+        use_refract_dir = refr_valid & (roulette > fresnel)
+        refraction_dir = torch.where(use_refract_dir[..., None], refr_dir,
+                                     brdf.reflect(ray_dir, surf.normal))
+        inv_refract_p = (1.0 / torch.clamp(refract_p, min=0.001))[..., None]
+        exit_gain = torch.exp(surf.albedo * torch.clamp(hit_dist, min=2.5)[..., None])
+        refraction_energy_scale = torch.where(
+            (inside == 2.0)[..., None],
+            inv_refract_p * exit_gain,
+            torch.where((inside == 1.0)[..., None], inv_refract_p * surf.albedo,
+                        torch.ones_like(exit_gain)),
+        )
+        sel_refract = (refract_p > 0.0) & (roulette < refract_p)
+        sel_spec = ~sel_refract & sel_spec
     sel_diff = ~sel_spec & (diff_p > 0.0) & (roulette < diff_p)
     new_dir = torch.where(sel_spec[..., None], spec_l, diff_l)
     scale = torch.where(
@@ -95,6 +133,9 @@ def evaluate_brdf(cfg, rng, ray_dir, ray_pos, energy, hit, surf, hit_pos,
         torch.where(sel_diff[..., None], diff_energy_scale,
                     torch.zeros_like(diff_energy_scale)),
     )
+    if refract_p is not None:
+        new_dir = torch.where(sel_refract[..., None], refraction_dir, new_dir)
+        scale = torch.where(sel_refract[..., None], refraction_energy_scale, scale)
     new_energy = energy * scale
 
     env = sample_reflection_probes(probes, ray_dir, primary_pos, mip_level=1.0)
@@ -133,9 +174,24 @@ def compact_capacity(cap: float, n_full: int) -> int:
     return min(n_full, max(1024, -(-int(cap * n_full) // 1024) * 1024))
 
 
-def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn):
+def apply_backface_normal_flip(surf, src, uv, is_back_hit, variants, back_depth_enabled):
+    """Back-hit normal reversal (ref PathTracing.hlsl:219-232); ``src`` is
+    the GBuffers or the PackedGBuffers the decode reads."""
+    if not variants.backface_textures:
+        return surf
+    back_normal = None
+    if back_depth_enabled == 2:
+        iy, ix = uv_to_pixel(uv, src.height, src.width)
+        back_normal = src.back_normal_at(lambda img: gather2d(img, iy, ix))
+    return dataclasses.replace(surf, normal=torch.where(
+        is_back_hit[..., None], flip_to_back(surf.normal, back_normal), surf.normal))
+
+
+def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
+                back_depth_enabled: int = 0):
     """Pass 0 (PathTracing.hlsl:385-496; shader:114-147). Returns the
-    traced radiance (H, W, 3); sky pixels return ``gb.emission``."""
+    traced radiance (H, W, 3); sky pixels return ``gb.emission``.
+    ``back_depth_enabled`` is the ThicknessMode value (2 = DepthNormals)."""
     variants.check_supported()
     if settings.samples_per_pixel != 1 or settings.dithering:
         raise NotImplementedError(
@@ -145,35 +201,41 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn)
     dev = gb.device
     h, w = gb.height, gb.width
     uv = pixel_uv(h, w, device=dev)
-    primary_raw = gb.depth
+    primary_raw = gb.layer1_depth() if variants.support_refraction else gb.depth
     is_background = primary_raw == RAW_FAR_CLIP
     position_ws = world_from_uv_depth(cam.inv_view_proj, uv, primary_raw)
     view_dir = normalize(cam.position - position_ws)
     rng = make_rng(h, w, frame_index, device=dev)
     dither = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    inside = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    primary_surf = hit_surface_from_gbuffer(gb, uv, inside, variants, direct=True)
+    # The primary decode also runs the refraction state machine.
+    primary_surf = hit_surface_from_gbuffer(
+        gb, uv, torch.zeros((h, w), dtype=torch.float32, device=dev), variants,
+        back_depth_enabled, direct=True)
+    primary_dist = norm3(cam.position - position_ws)
 
     if cfg.use_packed_gbuffer:
         pgb = pack_gbuffers(gb)
+        flip_src = pgb
 
         def decode_at(uv_, inside_):
-            return hit_surface_from_packed(pgb, uv_, inside_, variants)
+            return hit_surface_from_packed(pgb, uv_, inside_, variants, back_depth_enabled)
     else:
+        flip_src = gb
 
         def decode_at(uv_, inside_):
-            return hit_surface_from_gbuffer(gb, uv_, inside_, variants)
+            return hit_surface_from_gbuffer(gb, uv_, inside_, variants, back_depth_enabled)
 
     # Bounce 0: shade the primary hit (ref :423-428).
     energy = torch.ones((h, w, 3), dtype=torch.float32, device=dev)
     res = evaluate_brdf(
-        cfg, rng,
+        cfg, variants, rng,
         ray_dir=-view_dir,
         ray_pos=cam.position.expand(h, w, 3),
         energy=energy,
         hit=torch.ones((h, w), dtype=torch.bool, device=dev),
         surf=primary_surf,
         hit_pos=position_ws,
+        hit_dist=primary_dist,
         primary_pos=position_ws,
         probes=probes,
     )
@@ -183,6 +245,7 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn)
     energy = res.energy
     ray_dir = res.direction
     ray_pos = res.position
+    inside = primary_surf.inside_object
     alive = traceable & torch.any(energy != 0.0, dim=-1)
     depth_quirk = primary_raw
 
@@ -208,8 +271,12 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn)
                 ray_pos, ray_dir, energy = take(ray_pos), take(ray_dir), take(energy)
                 prim_pos_b, depth_quirk = take(prim_pos_b), take(depth_quirk)
                 rng = dataclasses.replace(rng, pix_x=take(rng.pix_x), pix_y=take(rng.pix_y))
-                # inside and dither are uniform over lanes on this slice.
-                inside = inside.reshape(cur_n)[:cap_n].reshape(ch, cw)
+                # inside varies over lanes only under refraction; dither
+                # is uniform (step dithering is not ported).
+                if variants.support_refraction:
+                    inside = take(inside)
+                else:
+                    inside = inside.reshape(cur_n)[:cap_n].reshape(ch, cw)
                 dither = dither.reshape(cur_n)[:cap_n].reshape(ch, cw)
                 view_dir_b = normalize(cam.position - prim_pos_b)
                 alive = valid.reshape(ch, cw)
@@ -222,10 +289,13 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn)
             view_dir_b, depth_quirk, alive,
         )
         surf = decode_at(march.uv, inside)
+        surf = apply_backface_normal_flip(
+            surf, flip_src, march.uv, march.is_back_hit, variants, back_depth_enabled)
         hit_pos = march.position + surf.normal * cfg.ray_bias
         res = evaluate_brdf(
-            cfg, rng, ray_dir=ray_dir, ray_pos=ray_pos, energy=energy, hit=march.hit,
-            surf=surf, hit_pos=hit_pos, primary_pos=prim_pos_b, probes=probes,
+            cfg, variants, rng, ray_dir=ray_dir, ray_pos=ray_pos, energy=energy,
+            hit=march.hit, surf=surf, hit_pos=hit_pos, hit_dist=march.distance,
+            primary_pos=prim_pos_b, probes=probes,
         )
         rng = res.rng
         alive3 = alive[..., None]
@@ -237,6 +307,8 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn)
         energy = torch.where(alive3, res.energy, energy)
         ray_dir = torch.where(alive3, res.direction, ray_dir)
         ray_pos = torch.where(alive3, res.position, ray_pos)
+        if variants.support_refraction:
+            inside = torch.where(alive & march.hit, surf.inside_object, inside)
         alive = alive & march.hit & torch.any(energy != 0.0, dim=-1)
 
         # Russian roulette (ref :481-493).

@@ -51,7 +51,7 @@ class RNG:
     seed: int  # draw counter, uniform over lanes
 
 
-def make_rng(height: int, width: int, frame_index: int, device="cpu") -> RNG:
+def make_rng(height: int, width: int, frame_index: int, device) -> RNG:
     xs = torch.arange(width, dtype=torch.int64, device=device)
     ys = torch.arange(height, dtype=torch.int64, device=device)
     py, px = torch.meshgrid(ys, xs, indexing="ij")
