@@ -9,16 +9,26 @@ Phases (any failure exits non-zero and prints no result line):
   3. K1 and R1 against their plain PyTorch versions on the card, at 256^2
      and 1920x1080, on BoxScene bounce-0 reflection rays; then K4 and
      R1's dual mode against theirs on the glass box with the refraction +
-     backface tiles, with insideObject 0, 1 and 2 (every combo row);
-  4. one whole headline frame, and one whole dual frame, with the
-     kernels against the plain path;
-  5. the two main paths, each with the launch counts set to 0 just
+     backface tiles, with insideObject 0, 1 and 2 (every combo row); then
+     K6 (the home prefix) and R1 started from K6's state, bit for bit, on
+     the BoxScene rays; then K2 and K3 at the unfused front half's shapes
+     (S = 24 steps x N lanes), plain and dual, bit for bit, and their
+     packs against K1's and K4's;
+  4. one whole headline frame, one whole dual frame and one whole home
+     frame, with the kernels against the plain path; the home march
+     against the non-home march at 1080p bounce 0 with 16 rounds;
+  5. the three main paths, each with the launch counts set to 0 just
      before and read just after it: Renderer.render_frame, OFFLINE,
      1920x1080, (a) the headline BoxScene with
-     PTConfig.boxscene_headline() and (b) the glass BoxScene with
-     refraction + DepthNormals thickness; 1 warm-up + timed frames;
-  6. a torch.profiler report of two more frames of each path (a report,
-     never a gate);
+     PTConfig.boxscene_headline(), (b) the glass BoxScene with
+     refraction + DepthNormals thickness and (c) the headline with the
+     home prefix and hiz_home_round_cap=0.4; 1 warm-up + timed frames;
+     each followed by a torch.profiler report of two more frames (a
+     report, never a gate);
+  6. a report, never a gate: the diagnostic march (K2 + K3, counts set
+     to 0 before and read after) through a 1080p headline frame, its
+     bounce-0 locality and round counters with and without the home
+     prefix, and the home prefix x round budget A/B;
 then one JSON line of per-kernel numbers, the card line again, and the
 last line {"ok": true, "device": {...}}.
 
@@ -28,6 +38,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,6 +67,25 @@ KERNELS = {
         source="unitysspathtracingurp_tpu_torch/csrc/resolve_rounds.cu",
         replaces="unitysspathtracingurp_tpu/ops/pathtrace_hiz.py:682",
     ),
+    "schedule_pack_home": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/schedule_pack.cu",
+        replaces="unitysspathtracingurp_tpu/ops/fused_schedule.py:579",
+    ),
+    "broadcast_table_select": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/pallas_gather.cu",
+        replaces="unitysspathtracingurp_tpu/ops/pallas_gather.py:90",
+    ),
+    "pack_by_slot": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/pallas_gather.cu",
+        replaces="unitysspathtracingurp_tpu/ops/pallas_gather.py:188",
+    ),
+}
+# The kernels each path launches (the others must stay at 0 there).
+PATHS = {
+    "headline": ("schedule_pack", "resolve_rounds"),
+    "dual": ("schedule_pack_dual", "resolve_rounds_dual"),
+    "home": ("schedule_pack_home", "schedule_pack", "resolve_rounds"),
+    "diagnostic": ("broadcast_table_select", "pack_by_slot", "resolve_rounds"),
 }
 
 
@@ -103,14 +133,21 @@ def bound(bytes_moved: float, ops: float) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the hiz march through the kernels' plain PyTorch versions."""
-    from unitysspathtracingurp_tpu_torch.ops import fused_schedule, pathtrace_hiz
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule, pallas_gather, pathtrace_hiz
 
-    names = ("schedule_pack", "resolve_rounds", "schedule_pack_dual", "resolve_rounds_dual")
+    plain = {
+        "schedule_pack": fused_schedule.schedule_pack_ref,
+        "resolve_rounds": pathtrace_hiz.resolve_rounds_ref,
+        "schedule_pack_dual": fused_schedule.schedule_pack_dual_ref,
+        "resolve_rounds_dual": pathtrace_hiz.resolve_rounds_dual_ref,
+        "schedule_pack_home": fused_schedule.schedule_pack_home_ref,
+        "broadcast_table_select": pallas_gather.broadcast_table_select_ref,
+        "pack_by_slot": pallas_gather.pack_by_slot_ref,
+    }
+    names = tuple(plain)
     saved = [getattr(pathtrace_hiz, n) for n in names]
-    pathtrace_hiz.schedule_pack = fused_schedule.schedule_pack_ref
-    pathtrace_hiz.resolve_rounds = pathtrace_hiz.resolve_rounds_ref
-    pathtrace_hiz.schedule_pack_dual = fused_schedule.schedule_pack_dual_ref
-    pathtrace_hiz.resolve_rounds_dual = pathtrace_hiz.resolve_rounds_dual_ref
+    for name, fn in plain.items():
+        setattr(pathtrace_hiz, name, fn)
     try:
         yield
     finally:
@@ -325,6 +362,327 @@ def check_dual_kernels(h, w, dev, timing: bool):
     return out
 
 
+def check_home_kernels(h, w, dev, timing: bool):
+    """Phase 3, home prefix, at one size: K6 against its plain version on
+    all 5 outputs, and R1 started from K6's state against its plain
+    version, bit for bit."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_depth_tiles, build_home_strips
+
+    gb, cam = boxscene(h, w, dev)
+    x = march_inputs(gb, cam)
+    settings = PTSettings(maximum_steps=24, dithering=False)
+    tiles = build_depth_tiles(gb.depth, cam.near, cam.far)
+    n = h * w
+    large_step = settings.step_size + (20.0 - settings.step_size) * x["scene_dist"] * 0.001
+    is_back = ((x["d"] * -x["view_dir"]).sum(-1) > 0.0).reshape(n)
+    strips = build_home_strips(tiles, h, w)
+    k6_args = (x["origin"].reshape(n, 3), x["d"].reshape(n, 3), torch.zeros(n, device=dev),
+               large_step.reshape(n), x["alive"].reshape(n), is_back, tiles.mini_table, strips,
+               fs.schedule_scalars(cam))
+    k6_kw = dict(fs.march_kwargs(PTConfig(), tiles, 24), home_shape=(h, w))
+    got = fs.schedule_pack_home(*k6_args, **k6_kw)
+    ref = fs.schedule_pack_home_ref(*k6_args, **k6_kw)
+    torch.cuda.synchronize()
+    k6_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+    k6_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+    state = torch.cat([torch.zeros_like(ref[4][:1]), ref[4]])
+    r1_args = (*ref[:4], k6_args[0], k6_args[1], is_back, tiles.pair_table, k6_args[8])
+    r1_kw = dict(gh=h, gw=w, pairs_x=tiles.pairs_x, n_rounds=ph.default_rounds(h, w),
+                 chain=4, s_max=24)
+    res_k = ph.resolve_rounds(*r1_args, state=state, **r1_kw)
+    res_r = ph.resolve_rounds_ref(*r1_args, state=state, **r1_kw)
+    torch.cuda.synchronize()
+    r1_equal = torch.equal(res_k, res_r)
+    prefix_hit = ref[4][0].mean().item()
+    print(f"phase 3 K6 schedule_pack_home {w}x{h}: all 5 outputs equal {k6_equal}, max abs "
+          f"err {k6_err:.3e}, prefix hits {prefix_hit:.4f}, lanes with packed candidates "
+          f"{(ref[3] > 0).float().mean().item():.4f}; R1 from K6's state: 12 rows equal "
+          f"{r1_equal}, hit fraction {res_r[1].mean().item():.4f}")
+    gate(k6_equal, "K6 bit-exact against its plain version")
+    gate(r1_equal, "R1 state-in bit-exact against its plain version")
+    gate(prefix_hit > 0.0 and bool((res_r[1] > ref[4][0]).any()), "home kernels exercised")
+    out = {"schedule_pack_home": {"max_abs_err": k6_err}}
+    if timing:
+        out["schedule_pack_home"].update(bound(
+            n * (12 + 12 + 4 + 4 + 1 + 1) + n * (16 * 12 + 4 + 11 * 4)
+            + (tiles.mini_table.numel() + strips.numel()) * 4, n * 24 * STEP_OPS))
+        out["schedule_pack_home"]["ms"] = cuda_ms(lambda: fs.schedule_pack_home(*k6_args, **k6_kw),
+                                                  20)
+        out["schedule_pack_home"]["plain_ms"] = cuda_ms(
+            lambda: fs.schedule_pack_home_ref(*k6_args, **k6_kw), 3)
+        # Beside it in the same call: K1 on the same rays.
+        k1_args = k6_args[:7] + k6_args[8:]
+        k1_kw = fs.march_kwargs(PTConfig(), tiles, 24)
+        k1_ms = cuda_ms(lambda: fs.schedule_pack(*k1_args, **k1_kw), 20)
+        r1_ms = cuda_ms(lambda: ph.resolve_rounds(*r1_args, state=state, **r1_kw), 20)
+        print(f"phase 3 K6 {w}x{h}: {out['schedule_pack_home']['ms']:.4f} ms beside K1 "
+              f"{k1_ms:.4f} ms on the same rays; R1 from K6's state {r1_ms:.4f} ms")
+    return out
+
+
+def check_gather_kernels(h, w, dev, timing: bool):
+    """Phase 3, the unfused front half at one size: K2 and K3 at the
+    shapes of bounce 0 (S = 24 steps x N lanes) against their plain
+    versions, bit for bit, plain layout and dual (insideObject 1), and
+    the K2 + K3 packs against K1's / K4's."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pallas_gather as pg
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_depth_tiles, mini_of
+
+    out = {"broadcast_table_select": {"max_abs_err": 0.0}, "pack_by_slot": {"max_abs_err": 0.0}}
+    for dual in (False, True):
+        gb, cam = boxscene(h, w, dev, glass=dual)
+        x = march_inputs(gb, cam)
+        settings = dual_settings() if dual else PTSettings(maximum_steps=24, dithering=False)
+        tiles = (ph.build_tiles_for(gb, cam, settings.variants()) if dual
+                 else build_depth_tiles(gb.depth, cam.near, cam.far))
+        n = h * w
+        large_step = settings.step_size + (20.0 - settings.step_size) * x["scene_dist"] * 0.001
+        is_back = ((x["d"] * -x["view_dir"]).sum(-1) > 0.0).reshape(n)
+        lane_args = (x["origin"].reshape(n, 3), x["d"].reshape(n, 3), torch.zeros(n, device=dev),
+                     large_step.reshape(n), x["alive"].reshape(n))
+        scalars = fs.schedule_scalars(cam)
+        kw = fs.march_kwargs(PTConfig(), tiles, 24)
+        dual_lanes = None
+        if dual:
+            combo = torch.ones(n, dtype=torch.int32, device=dev)
+            dual_lanes = (combo, is_back)
+            fused = fs.schedule_pack_dual(*lane_args, combo, is_back, tiles.mini_table,
+                                          tiles.bmax_table, scalars,
+                                          chunks_per_combo=tiles.chunks_per_combo, **kw)
+        else:
+            fused = fs.schedule_pack(*lane_args, is_back, tiles.mini_table, scalars, **kw)
+        unfused = ph.unfused_front_half(lane_args, is_back, scalars, tiles, kw,
+                                        dual_lanes=dual_lanes)
+        # The kernels against their plain versions on this run's inputs.
+        steps = list(fs.march_steps(*lane_args, scalars, **kw))
+        idx = mini_of(torch.stack([st["ix"] for st in steps]),
+                      torch.stack([st["iy"] for st in steps]), tiles.minis_x)
+        if dual:
+            idx = idx + tiles.chunks_per_combo * 128
+        idx = idx.to(torch.int32)
+        k2 = pg.broadcast_table_select(tiles.mini_table, idx)
+        k2_ref = pg.broadcast_table_select_ref(tiles.mini_table, idx)
+        cand = torch.stack([st["proc"] for st in steps]) & (torch.rand(idx.shape, device=dev) < 0.5)
+        fields = [torch.stack([st[key] for st in steps]) for key in ("cum", "th", "hitd")]
+        if dual:
+            fields.append(torch.stack([st["step"] for st in steps]))
+        k3, k3_n = pg.pack_by_slot(cand, fields, kw["k"])
+        k3_ref, k3_n_ref = pg.pack_by_slot_ref(cand, fields, kw["k"])
+        torch.cuda.synchronize()
+        k2_equal = torch.equal(k2, k2_ref)
+        k3_equal = torch.equal(k3_n, k3_n_ref) and all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(k3, k3_ref))
+        packs_equal = all(torch.equal(a, b) for a, b in zip(unfused, fused))
+        layout = "dual (inside 1)" if dual else "plain"
+        print(f"phase 3 K2 broadcast_table_select + K3 pack_by_slot {w}x{h} {layout}, S = "
+              f"{len(steps)}: K2 equal {k2_equal}, K3 ({len(fields)} fields) equal {k3_equal}; "
+              f"K2 + K3 packs equal to {'K4' if dual else 'K1'}'s {packs_equal}, lanes with "
+              f"candidates {(fused[-1] > 0).float().mean().item():.4f}")
+        gate(k2_equal and k3_equal, f"K2 / K3 bit-exact against their plain versions ({layout})")
+        gate(packs_equal, f"K2 + K3 packs equal the fused front half's ({layout})")
+        if timing and not dual:
+            s_n = idx.numel()
+            flat, idx64 = tiles.mini_table.reshape(-1), idx.to(torch.int64)
+            out["broadcast_table_select"].update(bound(s_n * 8 + flat.numel() * 4, s_n))
+            out["broadcast_table_select"]["ms"] = cuda_ms(
+                lambda: pg.broadcast_table_select(tiles.mini_table, idx), 20)
+            out["broadcast_table_select"]["plain_ms"] = cuda_ms(
+                lambda: pg.broadcast_table_select_ref(tiles.mini_table, idx), 5)
+            out["broadcast_table_select"]["library_ms"] = cuda_ms(
+                lambda: torch.take(flat, idx64), 20)
+            k = kw["k"]
+            out["pack_by_slot"].update(bound(
+                s_n * (1 + 4 * len(fields)) + k * n * 4 * len(fields) + n * 4,
+                s_n * (2 + len(fields))))
+            out["pack_by_slot"]["ms"] = cuda_ms(lambda: pg.pack_by_slot(cand, fields, k), 20)
+            out["pack_by_slot"]["plain_ms"] = cuda_ms(
+                lambda: pg.pack_by_slot_ref(cand, fields, k), 5)
+    return out
+
+
+def check_home_march(dev):
+    """Phase 4: the home march against the non-home march at 1080p bounce
+    0, 16 rounds, no cap, on the gate of tests/test_home_prefix.py:96-109
+    over the lanes with at most K candidates. The two are order-exact
+    only there: on a lane with more, the non-home pack keeps the first K
+    while the home prefix tests up to 4 before its K slots."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+
+    gb, cam = boxscene(H_FULL, W_FULL, dev)
+    x = march_inputs(gb, cam)
+    s = PTSettings(maximum_steps=24, dithering=False)
+    tiles = ph.build_tiles_for(gb, cam, s.variants())
+    zero = torch.zeros((H_FULL, W_FULL), device=dev)
+    dbg = {}
+    home, plain, _ = (
+        ph.ray_march_hiz(PTConfig(hiz_home_prefix=home), s, s.variants(), gb, cam, x["origin"],
+                         x["d"], zero, zero, -x["view_dir"], x["scene_dist"], x["alive"],
+                         tiles=tiles, n_rounds=16, home_ok=True, _debug_out=debug)
+        for home, debug in ((True, None), (False, None), (False, dbg))
+    )
+    torch.cuda.synchronize()
+    fits = dbg["c0_n_cand_true"] <= 16
+
+    def agreement(mask):
+        agree = (home.hit == plain.hit)[mask].float().mean().item()
+        both = home.hit & plain.hit & mask
+        dd = torch.quantile((home.distance - plain.distance).abs()[both].double(), 0.999).item()
+        uv = ((home.uv - plain.uv).abs().amax(-1) < 1e-6)[both].float().mean().item()
+        return agree, dd, uv
+
+    agree, dd, uv = agreement(fits)
+    agree_all, dd_all, uv_all = agreement(torch.ones_like(fits))
+    print(f"phase 4 home march vs non-home march {W_FULL}x{H_FULL} bounce 0, 16 rounds: lanes "
+          f"with <= K candidates ({fits.float().mean().item():.6f} of all): hit agreement "
+          f"{agree:.6f}, 99.9% |d distance| {dd:.3e}, uv agreement {uv:.6f}; all lanes: hit "
+          f"agreement {agree_all:.6f}, 99.9% |d distance| {dd_all:.3e}, uv agreement "
+          f"{uv_all:.6f}; hits {plain.hit.float().mean().item():.4f} non-home / "
+          f"{home.hit.float().mean().item():.4f} home")
+    gate(agree >= 0.999 and dd < 1e-4 and uv >= 0.999, "home march equals the non-home march")
+
+
+def diagnostic_report(dev, card):
+    """Phase 6, a report except for the launch counts: the diagnostic
+    march through a 1080p headline frame (counts set to 0 before and read
+    after), its bounce-0 locality and round counters, the same rays with
+    the home prefix, and the home prefix x round budget A/B."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+    from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_home_strips
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.ops.pathtrace import compact_capacity
+    from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
+
+    s = headline_settings()
+    gb, cam = boxscene(H_FULL, W_FULL, dev)
+    probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+    cfg = PTConfig.boxscene_headline()
+    tiles = ph.build_tiles_for(gb, cam, s.variants())
+    # The bounce-0 march inputs of the headline frame, caught on the way.
+    seen = []
+    real = ph.ray_march_hiz
+
+    def spy(*args, **kw):
+        if not seen:
+            seen.append(args)
+        return real(*args, **kw)
+
+    dbg = {}
+    ph.ray_march_hiz = spy
+    LAUNCHES.clear()
+    try:
+        ph.trace_frame_hiz(gb, cam, probes, s, dataclasses.replace(cfg, hiz_round_cap=0.4),
+                           s.variants(), 99, tiles=tiles, _debug_out=dbg)
+        torch.cuda.synchronize()
+    finally:
+        ph.ray_march_hiz = real
+    counts = dict(LAUNCHES)
+    gate(all(counts.get(name, 0) > 0 for name in PATHS["diagnostic"])
+         and all(counts.get(name, 0) == 0 for name in KERNELS
+                 if name not in PATHS["diagnostic"]),
+         f"diagnostic march launch counts {counts}")
+    n = H_FULL * W_FULL
+    val = {k: float(v.float().sum()) if torch.is_tensor(v) else v for k, v in dbg.items()
+           if k.startswith("c0_") and k != "c0_pk"}
+    lanes_cand = float((dbg["c0_n_cand"] > 0).sum())
+    print(f"phase 6 diagnostic march (K2 + K3) through a {W_FULL}x{H_FULL} headline frame, "
+          f"hiz_round_cap 0.4: launches {counts} [{card}]")
+    print(f"phase 6 bounce 0 locality: candidates in the start pair window "
+          f"{val['c0_cand_in_home'] / val['c0_cand_total']:.4f} of {val['c0_cand_total']:.0f}, "
+          f"first candidate there {val['c0_first_in_home'] / lanes_cand:.4f} of "
+          f"{lanes_cand:.0f} lanes with a candidate, within +-1 pair "
+          f"{val['c0_cand_within_1'] / val['c0_cand_total']:.4f}, lanes above K "
+          f"{float((dbg['c0_n_cand_true'] > 16).sum()):.0f}")
+    print("phase 6 bounce 0 active lanes per round without home: "
+          + ", ".join(f"r{r} {val[f'c0_active_r{r}']:.0f}" for r in range(4))
+          + f"; round_compact_drop at cap 0.4 {val['c0_round_compact_drop']:.0f}")
+
+    # The same bounce-0 rays with the home prefix: K6, then R1 one round at a time.
+    cfg_, settings_, variants_, gb_, cam_, pos, ray_dir, inside, dither, view, sdist, alive = seen[0]
+    lane_args = (pos.reshape(n, 3), ray_dir.reshape(n, 3), dither.expand(H_FULL, W_FULL).reshape(n),
+                 (s.step_size + (20.0 - s.step_size) * sdist * 0.001).reshape(n), alive.reshape(n))
+    is_back = ((ray_dir * view).sum(-1) > 0.0).reshape(n)
+    scalars = fs.schedule_scalars(cam)
+    *packs, home = fs.schedule_pack_home(
+        *lane_args, is_back, tiles.mini_table, build_home_strips(tiles, H_FULL, W_FULL), scalars,
+        home_shape=(H_FULL, W_FULL), **fs.march_kwargs(cfg, tiles, s.maximum_steps))
+    state = torch.cat([torch.zeros_like(home[:1]), home])
+    active = []
+    for _ in range(4):
+        active.append(float(((state[1] < 0.5) & (state[0] < packs[3].float())).sum()))
+        state = ph.resolve_rounds(*packs, lane_args[0], lane_args[1], is_back, tiles.pair_table,
+                                  scalars, state=state, gh=H_FULL, gw=W_FULL,
+                                  pairs_x=tiles.pairs_x, n_rounds=1, chain=4,
+                                  s_max=s.maximum_steps)
+    cap_n = compact_capacity(0.4, n)
+    print(f"phase 6 bounce 0 with home: prefix hits {float((home[0] > 0.5).sum()):.0f}, active "
+          "lanes per round " + ", ".join(f"r{r} {a:.0f}" for r, a in enumerate(active))
+          + f"; lanes past the 0.4 cap ({cap_n}) {max(active[0] - cap_n, 0.0):.0f}")
+
+    # The front half on these real rays: K6 beside K1.
+    k1_args = (*lane_args, is_back, tiles.mini_table, scalars)
+    k1_kw = fs.march_kwargs(cfg, tiles, s.maximum_steps)
+    strips = build_home_strips(tiles, H_FULL, W_FULL)
+    k1_ms = cuda_ms(lambda: fs.schedule_pack(*k1_args, **k1_kw), 20)
+    k6_ms = cuda_ms(lambda: fs.schedule_pack_home(
+        *lane_args, is_back, tiles.mini_table, strips, scalars, home_shape=(H_FULL, W_FULL),
+        **k1_kw), 20)
+    print(f"phase 6 bounce-0 rays of the frame: K1 {k1_ms:.4f} ms, K6 {k6_ms:.4f} ms [{card}]")
+
+    # The A/B: home x n_rounds, with the 0.4 cap and without, against the
+    # non-home headline (4 rounds) and against the non-home frame at an
+    # ample 16 rounds. At 1 spp a pixel
+    # whose path diverges gives an unrelated sample, so these count
+    # diverging pixels rather than converged quality.
+    ref = ph.trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, tiles=tiles)
+    ample = ph.trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, tiles=tiles,
+                               n_rounds=16)
+    non_sky = (gb.layer1_depth() != 0.0).cpu().numpy()
+
+    def march_ms(c, rounds):
+        """The least of 5 means of 4 marches: the march is host-bound."""
+        return min(cuda_ms(lambda: ph.ray_march_hiz(
+            c, settings_, variants_, gb_, cam_, pos, ray_dir, inside, dither, view, sdist,
+            alive, tiles=tiles, n_rounds=rounds, home_ok=True), 4) for _ in range(5))
+
+    def against(img, base):
+        rel, within = frame_agreement(img.cpu().numpy(), base.cpu().numpy(), non_sky)
+        return f"{rel:.4e} (non-sky within 1e-3 {within:.6f})"
+
+    print(f"phase 6 A/B non-home headline, 4 rounds: bounce-0 march {march_ms(cfg, 4):.4f} ms, "
+          f"frame against 16 rounds {against(ref, ample)} [{card}]")
+    no_cap = home_config(hiz_home_round_cap=None)
+    for label, c, rounds in (("home, cap 0.4, 4 rounds", home_config(), 4),
+                             ("home, cap 0.4, 2 rounds", home_config(), 2),
+                             ("home, cap 0.4, 1 round", home_config(), 1),
+                             ("home, no cap, 4 rounds", no_cap, 4),
+                             ("home, no cap, 2 rounds", no_cap, 2),
+                             ("home, no cap, 1 round", no_cap, 1)):
+        img = ph.trace_frame_hiz(gb, cam, probes, s, c, s.variants(), 99, tiles=tiles,
+                                 n_rounds=rounds)
+        print(f"phase 6 A/B {label}: bounce-0 march {march_ms(c, rounds):.4f} ms, frame pooled "
+              f"relative RMSE against the non-home headline {against(img, ref)}, against 16 "
+              f"rounds {against(img, ample)} [{card}]")
+    return counts
+
+
 def headline_settings():
     from unitysspathtracingurp_tpu_torch.config import DenoiserType, PTSettings
 
@@ -333,17 +691,27 @@ def headline_settings():
                       maximum_samples=512)
 
 
-def path_config(dual: bool):
+def home_config(**kw):
+    """The headline config with the home prefix and its round cap."""
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+
+    return dataclasses.replace(PTConfig.boxscene_headline(),
+                               **{"hiz_home_prefix": True, "hiz_home_round_cap": 0.4, **kw})
+
+
+def path_config(path: str):
     """(settings, cfg, back_depth_enabled, glass) of a main path."""
     from unitysspathtracingurp_tpu_torch.config import PTConfig
 
-    if dual:
+    if path == "dual":
         s = dual_settings(maximum_samples=512)
         return s, PTConfig(), int(s.accurate_thickness.value), True
+    if path == "home":
+        return headline_settings(), home_config(), 0, False
     return headline_settings(), PTConfig.boxscene_headline(), 0, False
 
 
-def check_frame(h, w, dev, dual: bool):
+def check_frame(h, w, dev, path: str):
     """Phase 4: one frame, kernels vs the plain path."""
     import torch
 
@@ -351,7 +719,7 @@ def check_frame(h, w, dev, dual: bool):
     from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
     from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
 
-    s, cfg, bde, glass = path_config(dual)
+    s, cfg, bde, glass = path_config(path)
     gb, cam = boxscene(h, w, dev, glass=glass)
     probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
     fast = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, back_depth_enabled=bde)
@@ -362,12 +730,12 @@ def check_frame(h, w, dev, dual: bool):
     gate(bool(torch.isfinite(fast).all()), "frame has non-finite values")
     non_sky = (gb.layer1_depth() != 0.0).cpu().numpy()
     rel, within = frame_agreement(fast.cpu().numpy(), plain.cpu().numpy(), non_sky)
-    print(f"phase 4 {'dual' if dual else 'headline'} frame {w}x{h}: pooled relative RMSE "
+    print(f"phase 4 {path} frame {w}x{h}: pooled relative RMSE "
           f"{rel:.3e}, non-sky pixels within 1e-3 {within:.6f}")
     gate(rel < 0.01 and within >= 0.99, "frame agreement")
 
 
-def main_path(dev, card, dual: bool):
+def main_path(dev, card, path: str):
     """Phase 5: the Renderer at 1080p, offline; the launch counts are
     set to 0 just before the path and read just after it."""
     import torch
@@ -377,13 +745,16 @@ def main_path(dev, card, dual: bool):
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
     from unitysspathtracingurp_tpu_torch.utils.metrics import mrays_per_sec
 
-    s, cfg, _, glass = path_config(dual)
+    s, cfg, _, glass = path_config(path)
     gb, cam = boxscene(H_FULL, W_FULL, dev, glass=glass)
     r = Renderer(s, H_FULL, W_FULL, cfg=cfg,
                  probes=ProbeSet(probe0=constant_probe(PROBE, device=dev)), device=dev)
-    mine = ("schedule_pack_dual", "resolve_rounds_dual") if dual else (
-        "schedule_pack", "resolve_rounds")
-    others = [k for k in KERNELS if k not in mine]
+    # Launches per frame: the home prefix runs on bounce 0 only, the
+    # plain front half on the others; R1 once per bounce.
+    bounces = s.maximum_depth
+    expect = dict.fromkeys(PATHS[path], bounces)
+    if path == "home":
+        expect.update(schedule_pack_home=1, schedule_pack=bounces - 1)
     LAUNCHES.clear()
     per_frame = []
     image = r.render_frame(gb, cam)  # warm-up: builds the depth tiles
@@ -399,8 +770,7 @@ def main_path(dev, card, dual: bool):
     launches = dict(LAUNCHES)
     dt = sum(times) / TIMED_FRAMES
     for i, counts in enumerate(per_frame, start=1):
-        gate(all(counts.get(name, 0) == s.maximum_depth * i for name in mine)
-             and all(counts.get(name, 0) == 0 for name in others),
+        gate(all(counts.get(name, 0) == expect.get(name, 0) * i for name in KERNELS),
              f"launch counts after frame {i}: {counts}")
     gate(r.sample == 1 + TIMED_FRAMES, f"sample counter {r.sample}")
     gate(tuple(image.shape) == (H_FULL, W_FULL, 3), "image shape")
@@ -408,7 +778,8 @@ def main_path(dev, card, dual: bool):
     gate(float(r.offline_state.accum.mean()) > 0.0, "accumulated image is black")
     sky = float((gb.layer1_depth() == 0.0).float().mean())
     rate = mrays_per_sec(H_FULL, W_FULL, 1, s.maximum_depth, dt, sky)
-    name = "dual (glass, refraction + DepthNormals)" if dual else "headline"
+    name = {"dual": "dual (glass, refraction + DepthNormals)",
+            "home": "home (headline + home prefix, hiz_home_round_cap 0.4)"}.get(path, path)
     print(f"phase 5 {name} main path Renderer.render_frame OFFLINE {W_FULL}x{H_FULL} "
           f"{s.maximum_depth} bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
           f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s, "
@@ -470,6 +841,7 @@ def main() -> int:
         return 2
 
     dev = torch.device("cuda", 0)
+    torch.manual_seed(0)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -482,19 +854,26 @@ def main() -> int:
         stats.update(check_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     for h, w in ((256, 256), (H_FULL, W_FULL)):
         stats.update(check_dual_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
-    for dual in (False, True):
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        stats.update(check_home_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        stats.update(check_gather_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
+    for path in ("headline", "dual", "home"):
         for h, w in ((256, 256), (H_FULL, W_FULL)):
-            check_frame(h, w, dev, dual)
+            check_frame(h, w, dev, path)
+    check_home_march(dev)
     launches = {}
-    for dual in (False, True):
-        counts = main_path(dev, card, dual)
-        for name in (("schedule_pack_dual", "resolve_rounds_dual") if dual
-                     else ("schedule_pack", "resolve_rounds")):
-            launches[name] = counts.get(name, 0)
+    for path in ("headline", "dual", "home"):
+        counts = main_path(dev, card, path)
+        for name in PATHS[path]:
+            launches.setdefault(name, counts.get(name, 0))
+    counts = diagnostic_report(dev, card)
+    for name in ("broadcast_table_select", "pack_by_slot"):
+        launches[name] = counts[name]
 
     rows = [
         dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
-             launches=launches[name], library_ms=None, **stats[name])
+             launches=launches[name], **{"library_ms": None, **stats[name]})
         for name, meta in KERNELS.items()
     ]
     for row in rows:

@@ -123,18 +123,20 @@ def test_settings_validate_ranges(field, value):
 
 
 @pytest.mark.parametrize("cfg_kw,settings_kw", [
-    ({"hiz_home_prefix": True}, {}),
-    ({"hiz_round_cap": 0.4}, {}),
+    ({"hiz_home_prefix": True}, {"noise_method": tconfig.NoiseMethod.SOBOL_OWEN}),
+    ({"hiz_round_cap": 0.4}, {"denoiser": tconfig.DenoiserType.SPATIAL_TEMPORAL}),
     ({}, {"gbuffer_normals_oct": True}),
     ({}, {"noise_method": tconfig.NoiseMethod.BLUE_NOISE}),
     ({}, {"denoiser": tconfig.DenoiserType.TEMPORAL}),
     ({}, {"ignore_forward_objects": True}),
 ])
 def test_unported_knobs_raise(cfg_kw, settings_kw):
+    """Unported settings raise, also beside the ported resolve knobs."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.PTConfig(**cfg_kw).check_supported()
         tconfig.PTSettings(**settings_kw).variants().check_supported()
-        Renderer(tconfig.PTSettings(**settings_kw), 16, 16, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Renderer(tconfig.PTSettings(**settings_kw), 16, 16, cfg=tconfig.PTConfig(**cfg_kw),
+                 device="cpu")
 
 
 # ---------------------------------------------------------------- camera

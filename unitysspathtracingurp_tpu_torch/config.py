@@ -8,9 +8,10 @@ defaults and ``validate()`` ranges. The TPU-only lowering knobs
 same math, and PyTorch has no such choice to make.
 
 Behaviour knobs whose code paths are not ported yet stay as fields, so a
-configuration carries over field by field, but ``check_supported``
-raises ``NotImplementedError`` naming the ROADMAP item that ports them
-instead of silently running something else.
+configuration carries over field by field, but ``PTVariants.
+check_supported`` (and the entry points, for settings) raises
+``NotImplementedError`` naming the ROADMAP item that ports them instead
+of silently running something else.
 """
 
 from __future__ import annotations
@@ -74,15 +75,20 @@ class PTConfig:
     # Between-bounce lane compaction: caps[b] is bounce b's lane capacity
     # as a fraction of the pixel count (last entry extends); None = off.
     compaction_caps: tuple | None = None
-    # Resolve-round lane compaction (ROADMAP Queue 1 item 5b).
+    # Resolve-round lane compaction: after one dense round, the rounds
+    # run on at most this fraction of the lanes (unresolved lanes first;
+    # those past the capacity finalize as misses); None = off.
     hiz_round_cap: float | None = None
     # Candidates tested per fetched 32x8-px depth window per round.
     hiz_chain: int = 4
     # Resolve-round budget: None = default_rounds(h, w); an int; or a
     # tuple of per-bounce budgets (last entry extends).
     hiz_rounds: int | tuple | None = None
-    # Home-prefix resolve (kernel K6; ROADMAP Queue 2 item K6).
+    # Home-prefix resolve (kernel K6) on bounce 0 of a screen-ordered
+    # frame: None or False = off, True = on.
     hiz_home_prefix: bool | None = None
+    # With the home prefix on, the rounds run compacted from round 0 at
+    # this lane fraction; None = dense rounds.
     hiz_home_round_cap: float | None = None
 
     @classmethod
@@ -90,20 +96,6 @@ class PTConfig:
         """The BoxScene 1080p production config (the JAX package's
         ``PTConfig.boxscene_headline``): measured zero-drop caps."""
         return cls(compaction_caps=(1.0, 0.34, 0.21, 0.15))
-
-    def check_supported(self) -> "PTConfig":
-        """Raise for behaviour knobs whose code path is not ported."""
-        if self.hiz_home_prefix:
-            raise NotImplementedError(
-                "hiz_home_prefix: the home-prefix resolve (kernel K6) is "
-                "ROADMAP Queue 2 item K6"
-            )
-        if self.hiz_round_cap is not None or self.hiz_home_round_cap is not None:
-            raise NotImplementedError(
-                "hiz_round_cap / hiz_home_round_cap: resolve-round compaction "
-                "is ROADMAP Queue 1 item 5b (round compaction)"
-            )
-        return self
 
 
 @dataclasses.dataclass(frozen=True)

@@ -42,6 +42,15 @@
 // each) plus 36 B of ray state in, 15 * 4 B out; the data-dependent
 // table words are counted by chip_smoke.py from the links tested.
 //
+// State-in form (both modes): `state` is a (1 + rows, N) f32 table, ptr
+// then the 11 (dual: 15) resolve rows, that the rounds start from instead
+// of ptr = 0 and the zero state; `out` then has the same layout and
+// receives the state after the rounds. A null `state` keeps the zero
+// start and the (rows, N) output. It serves K6's resolve-state init (the
+// home prefix's hits and its failed tests' prev_diff / prev_sidx), the
+// rounds run on compacted lanes after dense ones, and the diagnostic
+// march's one-round-at-a-time counts.
+//
 // Numerics: --fmad=false and IEEE divides, as in schedule_pack.cu.
 
 #include <cuda_runtime.h>
@@ -74,8 +83,9 @@ __global__ void resolve_rounds_kernel(
     const float* __restrict__ pk_hist, const int32_t* __restrict__ n_cand,
     const float* __restrict__ ray_pos, const float* __restrict__ ray_dir,
     const uint8_t* __restrict__ is_back, const uint32_t* __restrict__ table,
-    const float* __restrict__ scalars, float* __restrict__ out, DualArgs dual,
-    int n, int k, int gh, int gw, int pairs_x, int n_rounds, int chain, int s_max) {
+    const float* __restrict__ scalars, const float* __restrict__ state,
+    float* __restrict__ out, DualArgs dual, int n, int k, int gh, int gw, int pairs_x,
+    int n_rounds, int chain, int s_max) {
   __shared__ float s_m[18];
   if (threadIdx.x < 18) s_m[threadIdx.x] = scalars[threadIdx.x];
   __syncthreads();
@@ -103,6 +113,28 @@ __global__ void resolve_rounds_kernel(
   float h_sd = 0.0f, prev_sd = 0.0f;
   bool h_back = false, h_search = false;
   int ptr = 0;
+  const size_t nn = static_cast<size_t>(n);
+  if (state != nullptr) {
+    const float* st = state + lane;
+    ptr = static_cast<int>(st[0]);
+    hit = st[1 * nn] > 0.5f;
+    h_cum = st[2 * nn];
+    h_diff = st[3 * nn];
+    h_th = st[4 * nn];
+    h_hitd = st[5 * nn];
+    h_lcum = st[6 * nn];
+    h_lhd = st[7 * nn];
+    h_prev = static_cast<int>(st[8 * nn]);
+    h_ixy = static_cast<int>(st[9 * nn]);
+    prev_diff = st[10 * nn];
+    prev_sidx = static_cast<int>(st[11 * nn]);
+    if (DUAL) {
+      h_sd = st[12 * nn];
+      prev_sd = st[13 * nn];
+      h_back = st[14 * nn] > 0.5f;
+      h_search = st[15 * nn] > 0.5f;
+    }
+  }
 
   for (int r = 0; r < n_rounds; ++r) {
     if (hit || ptr >= nc) break;  // inactive lanes stay inactive
@@ -199,7 +231,10 @@ __global__ void resolve_rounds_kernel(
     }
     ptr += adv;
   }
-  const size_t nn = static_cast<size_t>(n);
+  if (state != nullptr) {
+    out[lane] = static_cast<float>(ptr);
+    out += nn;
+  }
   out[0 * nn + lane] = hit ? 1.0f : 0.0f;
   out[1 * nn + lane] = h_cum;
   out[2 * nn + lane] = h_diff;
@@ -224,9 +259,9 @@ __global__ void resolve_rounds_kernel(
 extern "C" int sspt_resolve_rounds(
     const void* pk_cum, const void* pk_scode, const void* pk_hist,
     const void* n_cand, const void* ray_pos, const void* ray_dir,
-    const void* is_back, const void* pair_table, const void* scalars, void* out,
-    int n, int k, int gh, int gw, int pairs_x, int n_rounds, int chain,
-    int s_max, void* stream) {
+    const void* is_back, const void* pair_table, const void* scalars,
+    const void* state, void* out, int n, int k, int gh, int gw, int pairs_x,
+    int n_rounds, int chain, int s_max, void* stream) {
   if (n > 0) {
     const int threads = 128;
     const int blocks = (n + threads - 1) / threads;
@@ -236,8 +271,8 @@ extern "C" int sspt_resolve_rounds(
         static_cast<const float*>(pk_hist), static_cast<const int32_t*>(n_cand),
         static_cast<const float*>(ray_pos), static_cast<const float*>(ray_dir),
         static_cast<const uint8_t*>(is_back), static_cast<const uint32_t*>(pair_table),
-        static_cast<const float*>(scalars), static_cast<float*>(out), none, n, k, gh, gw,
-        pairs_x, n_rounds, chain, s_max);
+        static_cast<const float*>(scalars), static_cast<const float*>(state),
+        static_cast<float*>(out), none, n, k, gh, gw, pairs_x, n_rounds, chain, s_max);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,9 +281,9 @@ extern "C" int sspt_resolve_rounds_dual(
     const void* pk_cum, const void* pk_scode, const void* pk_hist,
     const void* pk_step, const void* n_cand, const void* ray_pos,
     const void* ray_dir, const void* is_back, const void* combo,
-    const void* search, const void* tile_table, const void* scalars, void* out,
-    int n, int k, int gh, int gw, int tiles_x, int tiles_per_combo, int n_rounds,
-    int chain, int s_max, int has_back, void* stream) {
+    const void* search, const void* tile_table, const void* scalars,
+    const void* state, void* out, int n, int k, int gh, int gw, int tiles_x,
+    int tiles_per_combo, int n_rounds, int chain, int s_max, int has_back, void* stream) {
   if (n > 0) {
     const int threads = 128;
     const int blocks = (n + threads - 1) / threads;
@@ -260,8 +295,8 @@ extern "C" int sspt_resolve_rounds_dual(
         static_cast<const float*>(pk_hist), static_cast<const int32_t*>(n_cand),
         static_cast<const float*>(ray_pos), static_cast<const float*>(ray_dir),
         static_cast<const uint8_t*>(is_back), static_cast<const uint32_t*>(tile_table),
-        static_cast<const float*>(scalars), static_cast<float*>(out), dual, n, k, gh, gw,
-        tiles_x, n_rounds, chain, s_max);
+        static_cast<const float*>(scalars), static_cast<const float*>(state),
+        static_cast<float*>(out), dual, n, k, gh, gw, tiles_x, n_rounds, chain, s_max);
   }
   return static_cast<int>(cudaGetLastError());
 }

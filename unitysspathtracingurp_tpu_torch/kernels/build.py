@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     # pointers: ray_pos, ray_dir, dither, large_step, alive, is_back,
     # mini_table, scalars, pk_cum, pk_scode, pk_hist, n_cand; then ints
@@ -49,15 +49,25 @@ _SIGNATURES = {
     # combo_words, s_max, k, max_small, max_medium; the same 8 floats;
     # stream.
     "sspt_schedule_pack_dual": [P] * 15 + [I] * 10 + [F] * 8 + [P],
+    # pointers: ray_pos, ray_dir, dither, large_step, alive, is_back,
+    # mini_table, strips, scalars, pk_cum, pk_scode, pk_hist, n_cand,
+    # home_out; ints h, w (lanes), gh, gw, minis_x, n_mini_words, s_max,
+    # k, max_small, max_medium; the same 8 floats; stream.
+    "sspt_schedule_pack_home": [P] * 14 + [I] * 10 + [F] * 8 + [P],
     # pointers: pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir,
-    # is_back, pair_table, scalars, out; ints n, k, gh, gw, pairs_x,
-    # n_rounds, chain, s_max; stream.
-    "sspt_resolve_rounds": [P] * 10 + [I] * 8 + [P],
+    # is_back, pair_table, scalars, state (or null), out; ints n, k, gh,
+    # gw, pairs_x, n_rounds, chain, s_max; stream.
+    "sspt_resolve_rounds": [P] * 11 + [I] * 8 + [P],
     # pointers: pk_cum, pk_scode, pk_hist, pk_step, n_cand, ray_pos,
-    # ray_dir, is_back, combo, search, tile_table, scalars, out; ints n,
-    # k, gh, gw, tiles_x, tiles_per_combo, n_rounds, chain, s_max,
-    # has_back; stream.
-    "sspt_resolve_rounds_dual": [P] * 13 + [I] * 10 + [P],
+    # ray_dir, is_back, combo, search, tile_table, scalars, state (or
+    # null), out; ints n, k, gh, gw, tiles_x, tiles_per_combo, n_rounds,
+    # chain, s_max, has_back; stream.
+    "sspt_resolve_rounds_dual": [P] * 14 + [I] * 10 + [P],
+    # pointers: table, idx, out; int n_words; long long n; stream.
+    "sspt_broadcast_table_select": [P] * 3 + [I, L] + [P],
+    # pointers: cand, 4 fields in, 4 fields out (null past nf), count;
+    # ints s, n, k, nf; stream.
+    "sspt_pack_by_slot": [P] * 10 + [I] * 4 + [P],
 }
 
 

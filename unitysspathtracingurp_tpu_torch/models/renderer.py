@@ -46,7 +46,6 @@ class Renderer:
         device="cuda",
     ):
         settings.validate()
-        cfg.check_supported()
         if settings.denoiser not in (DenoiserType.NONE, DenoiserType.OFFLINE):
             raise NotImplementedError(
                 f"{settings.denoiser}: the real-time modes are ROADMAP Queue 1 item 10"

@@ -222,6 +222,29 @@ def variant_combos(gb, variants):
     return [(layer1, back)]
 
 
+def build_home_strips(tiles: DepthTiles, h: int, w: int):
+    """The home depth strips of the home-prefix resolve (kernel K6): for
+    each 8x128-px lane block (by, bx) of a screen-ordered (h, w) frame,
+    the pair-table rows of bands by-1..by+1 x pairs 4bx-1..4bx+4, row
+    bj * HOME_PAIRS + pj; rows outside the image are 0 (sky). Returns
+    (h/8, w/128, HOME_BANDS * HOME_PAIRS, 128) int32 bits, bit-identical
+    to the JAX package's ``build_home_strips``."""
+    from .fused_schedule import HOME_BANDS, HOME_PAIRS
+
+    if h % TILE_H or w % 128:
+        raise ValueError(f"home strips need h % 8 == 0 and w % 128 == 0, got {h}x{w}")
+    nby, nbx = h // TILE_H, w // 128
+    ppb = 128 // (2 * TILE_W)  # pairs per lane block (4)
+    bands = tiles.pair_table.reshape(-1, tiles.pairs_x, 128)[:nby]
+    pad_b = HOME_BANDS // 2
+    padded = torch.nn.functional.pad(bands, (0, 0, 1, HOME_PAIRS - ppb - 1, pad_b, pad_b))
+    rows = [
+        padded[bj: bj + nby, pj: pj + ppb * (nbx - 1) + 1: ppb]
+        for bj in range(HOME_BANDS) for pj in range(HOME_PAIRS)
+    ]
+    return torch.stack(rows, 2).contiguous()
+
+
 def tile_of(ix, iy, tiles_x: int):
     """(tile_row, texel_word) of pixel (iy, ix) in single-tile rows."""
     return (iy // TILE_H) * tiles_x + (ix // TILE_W), (iy % TILE_H) * TILE_W + (ix % TILE_W)

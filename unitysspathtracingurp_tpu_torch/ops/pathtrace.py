@@ -287,6 +287,10 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
         march = march_fn(
             cfg, settings, variants, gb, cam, ray_pos, ray_dir, inside, dither,
             view_dir_b, depth_quirk, alive,
+            # Screen-ordered pixel-grid lanes (bounce 0, spp 1, not
+            # compacted): the hiz march's home-prefix precondition.
+            home_ok=(bounce == 0 and settings.samples_per_pixel == 1
+                     and tuple(ray_pos.shape[:2]) == (h, w)),
         )
         surf = decode_at(march.uv, inside)
         surf = apply_backface_normal_flip(
