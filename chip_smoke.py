@@ -13,16 +13,23 @@ Phases (any failure exits non-zero and prints no result line):
      K6 (the home prefix) and R1 started from K6's state, bit for bit, on
      the BoxScene rays; then K2 and K3 at the unfused front half's shapes
      (S = 24 steps x N lanes), plain and dual, bit for bit, and their
-     packs against K1's and K4's;
+     packs against K1's and K4's; then the unfused resolve rounds
+     (PTConfig.pallas_extract: K5 + row gather + K7) against R1, bit for
+     bit, from the zero state, from K6's state and on the dual layout
+     with insideObject 0, 1 and 2, with K5 and K7 against their plain
+     versions on the inputs the unfused rounds gave them;
   4. one whole headline frame, one whole dual frame and one whole home
      frame, with the kernels against the plain path; the home march
-     against the non-home march at 1080p bounce 0 with 16 rounds;
-  5. the three main paths, each with the launch counts set to 0 just
+     against the non-home march at 1080p bounce 0 with 16 rounds; the
+     headline and dual frames with pallas_extract against the default
+     frames, bit for bit;
+  5. the four main paths, each with the launch counts set to 0 just
      before and read just after it: Renderer.render_frame, OFFLINE,
      1920x1080, (a) the headline BoxScene with
      PTConfig.boxscene_headline(), (b) the glass BoxScene with
-     refraction + DepthNormals thickness and (c) the headline with the
-     home prefix and hiz_home_round_cap=0.4; 1 warm-up + timed frames;
+     refraction + DepthNormals thickness, (c) the headline with the
+     home prefix and hiz_home_round_cap=0.4 and (d) the headline with
+     pallas_extract (the unfused rounds); 1 warm-up + timed frames;
      each followed by a torch.profiler report of two more frames (a
      report, never a gate);
   6. a report, never a gate: the diagnostic march (K2 + K3, counts set
@@ -79,6 +86,14 @@ KERNELS = {
         source="unitysspathtracingurp_tpu_torch/csrc/pallas_gather.cu",
         replaces="unitysspathtracingurp_tpu/ops/pallas_gather.py:188",
     ),
+    "extract_chain": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/pallas_gather.cu",
+        replaces="unitysspathtracingurp_tpu/ops/pallas_gather.py:241",
+    ),
+    "rowwise_select": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/pallas_gather.cu",
+        replaces="unitysspathtracingurp_tpu/ops/pallas_gather.py:127",
+    ),
 }
 # The kernels each path launches (the others must stay at 0 there).
 PATHS = {
@@ -86,6 +101,7 @@ PATHS = {
     "dual": ("schedule_pack_dual", "resolve_rounds_dual"),
     "home": ("schedule_pack_home", "schedule_pack", "resolve_rounds"),
     "diagnostic": ("broadcast_table_select", "pack_by_slot", "resolve_rounds"),
+    "extract": ("schedule_pack", "extract_chain", "rowwise_select"),
 }
 
 
@@ -143,6 +159,8 @@ def plain_kernels():
         "schedule_pack_home": fused_schedule.schedule_pack_home_ref,
         "broadcast_table_select": pallas_gather.broadcast_table_select_ref,
         "pack_by_slot": pallas_gather.pack_by_slot_ref,
+        "extract_chain": pallas_gather.extract_chain_ref,
+        "rowwise_select": pallas_gather.rowwise_select_ref,
     }
     names = tuple(plain)
     saved = [getattr(pathtrace_hiz, n) for n in names]
@@ -270,6 +288,91 @@ def check_kernels(h, w, dev, timing: bool):
         out["resolve_rounds"]["ms"] = cuda_ms(lambda: ph.resolve_rounds(*r1_args, **r1_kw), 20)
         out["resolve_rounds"]["plain_ms"] = cuda_ms(
             lambda: ph.resolve_rounds_ref(*r1_args, **r1_kw), 3)
+    out.update(check_unfused(f"{w}x{h} plain, zero start", ph.resolve_rounds_unfused,
+                             ph.resolve_rounds, r1_args, r1_kw, timing=timing))
+    return out
+
+
+def check_unfused(label, unfused, fused, args, kw, state=None, timing=False):
+    """Phase 3: the unfused resolve rounds (K5 + row gather + K7) against
+    R1 on R1's inputs, every row bit for bit; K5 and K7 against their
+    plain versions on the inputs the unfused rounds' first round gave
+    them. With ``timing``, K5's and K7's numbers on those inputs."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pallas_gather as pg
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+
+    seen = {}
+    real = {name: getattr(ph, name) for name in ("extract_chain", "row_gather",
+                                                 "rowwise_select")}
+
+    def spy(name):
+        def call(*a):
+            seen.setdefault(name, a)
+            return real[name](*a)
+        return call
+
+    for name in real:
+        setattr(ph, name, spy(name))
+    try:
+        got = unfused(*args, state=state, **kw)
+    finally:
+        for name, fn in real.items():
+            setattr(ph, name, fn)
+    ref = fused(*args, state=state, **kw)
+    # The kernels' own inputs as the wrappers pass them (int32 indices).
+    fields, ptr, chain, slot_hi = seen["extract_chain"]
+    k5_in = (fields, ptr.to(torch.int32), chain, slot_hi)
+    blocks, idx = seen["rowwise_select"][0], seen["rowwise_select"][1].to(torch.int32)
+    k5, k5_ref = pg.extract_chain(*k5_in), pg.extract_chain_ref(*k5_in)
+    k7, k7_ref = pg.rowwise_select(blocks, idx), pg.rowwise_select_ref(blocks, idx)
+    torch.cuda.synchronize()
+    rows_equal = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    k5_equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(k5, k5_ref))
+    k7_equal = torch.equal(k7, k7_ref)
+    k5_err = max((a - b).abs().max().item() for a, b in zip(k5, k5_ref))
+    k7_err = (k7.to(torch.int64) - k7_ref.to(torch.int64)).abs().max().item()
+    hit = got[0 if state is None else 1]
+    print(f"phase 3 unfused resolve (K5 extract_chain + K7 rowwise_select) {label}: "
+          f"{ref.shape[0]} rows equal to R1's {rows_equal}, hit fraction "
+          f"{hit.mean().item():.4f}; K5 ({len(fields)} fields, window {slot_hi}) equal "
+          f"{k5_equal}, K7 (K = {idx.shape[1]}) equal {k7_equal}")
+    gate(rows_equal, f"unfused resolve rows equal R1's ({label})")
+    gate(k5_equal and k7_equal, f"K5 / K7 bit-exact against their plain versions ({label})")
+    if not timing:
+        return {}
+    n, nf = ptr.numel(), len(fields)
+    win = ptr.to(torch.int64)[None] + torch.arange(chain, device=ptr.device)[:, None]
+    in_window = float(((win >= 0) & (win < slot_hi)).sum())
+    # K5 reads ptr and only the slots inside the window, writes chain x nf.
+    out = {"extract_chain": dict(max_abs_err=k5_err, **bound(
+        n * 4 + in_window * nf * 4 + chain * n * nf * 4, chain * n * nf))}
+    out["extract_chain"]["ms"] = cuda_ms(lambda: pg.extract_chain(*k5_in), 20)
+    out["extract_chain"]["plain_ms"] = cuda_ms(lambda: pg.extract_chain_ref(*k5_in), 5)
+    # Library: one torch.gather over the stacked fields; the window's
+    # where (zeros past slot_hi) is a second op, not timed.
+    stacked = torch.stack(fields)
+    index = win.clamp(0, fields[0].shape[0] - 1)[None].expand(nf, chain, n).contiguous()
+    out["extract_chain"]["library_ms"] = cuda_ms(lambda: torch.gather(stacked, 1, index), 20)
+    # K7: idx read and values written (4 B each), and each distinct 32-B
+    # sector of a row that this run's indices select (16 per 512-B row).
+    sector = ((idx & 127) >> 3).to(torch.int64)
+    sectors = float(torch.zeros(idx.shape[0], 16, dtype=torch.bool, device=idx.device)
+                    .scatter_(1, sector, True).sum())
+    out["rowwise_select"] = dict(max_abs_err=float(k7_err),
+                                 **bound(idx.numel() * (4 + 4) + sectors * 32, idx.numel()))
+    out["rowwise_select"]["ms"] = cuda_ms(lambda: pg.rowwise_select(blocks, idx), 20)
+    out["rowwise_select"]["plain_ms"] = cuda_ms(lambda: pg.rowwise_select_ref(blocks, idx), 5)
+    idx64 = idx.to(torch.int64) & 127
+    out["rowwise_select"]["library_ms"] = cuda_ms(lambda: torch.gather(blocks, 1, idx64), 20)
+    print(f"phase 3 K5 / K7 {label}: K5 {out['extract_chain']['ms']:.4f} ms (torch.gather "
+          f"{out['extract_chain']['library_ms']:.4f}), K7 {out['rowwise_select']['ms']:.4f} ms "
+          f"(torch.gather {out['rowwise_select']['library_ms']:.4f}; {int(sectors)} distinct "
+          f"sectors for {idx.numel()} words), the round's row gather "
+          f"(index_select, {blocks.numel() * 4 / 1e9:.3f} GB) "
+          f"{cuda_ms(lambda: pg.row_gather(*seen['row_gather']), 20):.4f} ms [{card_line()}]")
     return out
 
 
@@ -334,6 +437,8 @@ def check_dual_kernels(h, w, dev, timing: bool):
         gate(r1_equal, f"R1 dual bit-exact against its plain version (inside {inside})")
         gate(bool((ref[4] > 0).any()) and bool((res_r[0] > 0).any()),
              f"dual kernels exercised (inside {inside})")
+        check_unfused(f"{w}x{h} dual inside {inside}", ph.resolve_rounds_dual_unfused,
+                      ph.resolve_rounds_dual, r1_args, r1_kw)
         out["schedule_pack_dual"]["max_abs_err"] = max(out["schedule_pack_dual"]["max_abs_err"],
                                                        k4_err)
         out["resolve_rounds_dual"]["max_abs_err"] = max(
@@ -406,6 +511,8 @@ def check_home_kernels(h, w, dev, timing: bool):
     gate(k6_equal, "K6 bit-exact against its plain version")
     gate(r1_equal, "R1 state-in bit-exact against its plain version")
     gate(prefix_hit > 0.0 and bool((res_r[1] > ref[4][0]).any()), "home kernels exercised")
+    check_unfused(f"{w}x{h} from K6's state", ph.resolve_rounds_unfused, ph.resolve_rounds,
+                  r1_args, r1_kw, state=state)
     out = {"schedule_pack_home": {"max_abs_err": k6_err}}
     if timing:
         out["schedule_pack_home"].update(bound(
@@ -708,6 +815,9 @@ def path_config(path: str):
         return s, PTConfig(), int(s.accurate_thickness.value), True
     if path == "home":
         return headline_settings(), home_config(), 0, False
+    if path == "extract":
+        return (headline_settings(),
+                dataclasses.replace(PTConfig.boxscene_headline(), pallas_extract=True), 0, False)
     return headline_settings(), PTConfig.boxscene_headline(), 0, False
 
 
@@ -735,6 +845,34 @@ def check_frame(h, w, dev, path: str):
     gate(rel < 0.01 and within >= 0.99, "frame agreement")
 
 
+def check_extract_frame(h, w, dev, path: str):
+    """Phase 4: the frame with pallas_extract (the unfused rounds, K5 +
+    K7) against the default frame (R1), both on the kernels, bit for bit."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
+    from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
+
+    s, cfg, bde, glass = path_config(path)
+    gb, cam = boxscene(h, w, dev, glass=glass)
+    probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+    base, ext = (
+        trace_frame_hiz(gb, cam, probes, s, c, s.variants(), 99,
+                        back_depth_enabled=bde).contiguous()
+        for c in (cfg, dataclasses.replace(cfg, pallas_extract=True))
+    )
+    torch.cuda.synchronize()
+    equal = torch.equal(ext.view(torch.int32), base.view(torch.int32))
+    max_abs = (ext - base).abs().max().item()
+    rel, _ = frame_agreement(ext.cpu().numpy(), base.cpu().numpy(),
+                             (gb.layer1_depth() != 0.0).cpu().numpy())
+    print(f"phase 4 {path} frame {w}x{h} with pallas_extract (K5 + K7) against the default "
+          f"frame (R1): bit-equal {equal}, pooled relative RMSE {rel:.3e}, max abs {max_abs:.3e}")
+    gate(bool(torch.isfinite(ext).all()), "extract frame has non-finite values")
+    gate(equal, f"extract frame bit-equal to the default frame ({path})")
+
+
 def main_path(dev, card, path: str):
     """Phase 5: the Renderer at 1080p, offline; the launch counts are
     set to 0 just before the path and read just after it."""
@@ -743,6 +881,7 @@ def main_path(dev, card, path: str):
     from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
     from unitysspathtracingurp_tpu_torch.models.renderer import Renderer
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import default_rounds
     from unitysspathtracingurp_tpu_torch.utils.metrics import mrays_per_sec
 
     s, cfg, _, glass = path_config(path)
@@ -750,11 +889,15 @@ def main_path(dev, card, path: str):
     r = Renderer(s, H_FULL, W_FULL, cfg=cfg,
                  probes=ProbeSet(probe0=constant_probe(PROBE, device=dev)), device=dev)
     # Launches per frame: the home prefix runs on bounce 0 only, the
-    # plain front half on the others; R1 once per bounce.
+    # plain front half on the others; R1 once per bounce; the unfused
+    # rounds launch K5 and K7 once per round.
     bounces = s.maximum_depth
     expect = dict.fromkeys(PATHS[path], bounces)
     if path == "home":
         expect.update(schedule_pack_home=1, schedule_pack=bounces - 1)
+    if path == "extract":
+        rounds = bounces * default_rounds(H_FULL, W_FULL)
+        expect.update(extract_chain=rounds, rowwise_select=rounds)
     LAUNCHES.clear()
     per_frame = []
     image = r.render_frame(gb, cam)  # warm-up: builds the depth tiles
@@ -779,7 +922,9 @@ def main_path(dev, card, path: str):
     sky = float((gb.layer1_depth() == 0.0).float().mean())
     rate = mrays_per_sec(H_FULL, W_FULL, 1, s.maximum_depth, dt, sky)
     name = {"dual": "dual (glass, refraction + DepthNormals)",
-            "home": "home (headline + home prefix, hiz_home_round_cap 0.4)"}.get(path, path)
+            "home": "home (headline + home prefix, hiz_home_round_cap 0.4)",
+            "extract": "extract (headline + pallas_extract: unfused rounds, K5 + K7)",
+            }.get(path, path)
     print(f"phase 5 {name} main path Renderer.render_frame OFFLINE {W_FULL}x{H_FULL} "
           f"{s.maximum_depth} bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
           f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s, "
@@ -862,8 +1007,11 @@ def main() -> int:
         for h, w in ((256, 256), (H_FULL, W_FULL)):
             check_frame(h, w, dev, path)
     check_home_march(dev)
+    for path in ("headline", "dual"):
+        for h, w in ((256, 256), (H_FULL, W_FULL)):
+            check_extract_frame(h, w, dev, path)
     launches = {}
-    for path in ("headline", "dual", "home"):
+    for path in ("headline", "dual", "home", "extract"):
         counts = main_path(dev, card, path)
         for name in PATHS[path]:
             launches.setdefault(name, counts.get(name, 0))

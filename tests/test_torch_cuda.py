@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1, R1, K4, R1's dual mode, K6, K2, K3 and R1's
-state-in form) against their plain PyTorch versions, on the card.
+"""The CUDA kernels (K1, R1, K4, R1's dual mode, K6, K2, K3, R1's
+state-in form, K5 and K7) against their plain PyTorch versions, and the
+unfused resolve rounds (K5 + K7) against R1, on the card.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device. On a
 machine with an NVIDIA GPU (no JAX needed):
@@ -268,3 +269,76 @@ def test_pack_by_slot_kernel_bit_exact(n_fields):
     assert (ref[1] == k).any() and torch.equal(got[1], ref[1])
     for a, b in zip(got[0], ref[0]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_fields", [3, 4])
+def test_extract_chain_kernel_bit_exact(n_fields):
+    """K5 at the window edges: ptr from -2 to K + 2, slot_hi below, at
+    and above K; -0.0 comes back +0.0 from both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(20 + n_fields)
+    k, n, chain = 16, 70001, 4
+    fields = [torch.randn(k, n, generator=g) for _ in range(n_fields)]
+    fields[0][torch.rand(k, n, generator=g) < 0.1] = -0.0
+    fields = [f.cuda() for f in fields]
+    ptr = torch.randint(-2, k + 2, (n,), generator=g, dtype=torch.int32).cuda()
+    for slot_hi in (12, 16, 40):
+        before = LAUNCHES["extract_chain"]
+        got = pg.extract_chain(fields, ptr, chain, slot_hi)
+        ref = pg.extract_chain_ref(fields, ptr, chain, slot_hi)
+        torch.cuda.synchronize()
+        assert LAUNCHES["extract_chain"] == before + 1
+        for a, b in zip(got, ref):
+            assert a.shape == (chain, n) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pg.extract_chain([fields[0].cpu()] + fields[1:], ptr, chain, 12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_rowwise_select_kernel_bit_exact(dtype):
+    """K7 moves 32-bit words bit for bit (NaN-payload f16 pairs too),
+    indices masked with & 127, at K = 4 and K = 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(30)
+    n = 50001
+    words = torch.randint(-2**31, 2**31 - 1, (n, 128), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    words[::7, ::5] = 0x7E017C01
+    blocks = words.view(dtype).cuda()
+    for k in (4, 128):
+        idx = torch.randint(0, 256, (n, k), generator=g, dtype=torch.int32).cuda()
+        before = LAUNCHES["rowwise_select"]
+        got = pg.rowwise_select(blocks, idx)
+        ref = pg.rowwise_select_ref(blocks, idx)
+        torch.cuda.synchronize()
+        assert LAUNCHES["rowwise_select"] == before + 1
+        assert got.dtype == dtype and got.shape == (n, k)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pg.rowwise_select(blocks, idx.cpu())
+
+
+def test_unfused_rounds_equal_r1_kernel(case, dual_case):
+    """The unfused rounds (K5 + row gather + K7) against R1's kernel,
+    plain and dual (insideObject 2), every row bit for bit."""
+    tiles, args, kw = case
+    packs = fs.schedule_pack_ref(*args, **kw)
+    r_args = (*packs, args[0], args[1], args[5], tiles.pair_table, args[7])
+    r_kw = dict(gh=H, gw=W, pairs_x=tiles.pairs_x, n_rounds=4, chain=4, s_max=24)
+    before = LAUNCHES["extract_chain"], LAUNCHES["rowwise_select"]
+    got = ph.resolve_rounds_unfused(*r_args, **r_kw)
+    ref = ph.resolve_rounds(*r_args, **r_kw)
+    d_args, d_kw, back, d_r_kw = _dual_args(dual_case, 2)
+    dpacks = fs.schedule_pack_dual_ref(*d_args, **d_kw)
+    dr_args = (*dpacks, d_args[0], d_args[1], back, d_args[5], d_args[6],
+               dual_case[5].tile_table, d_args[9])
+    dgot = ph.resolve_rounds_dual_unfused(*dr_args, **d_r_kw)
+    dref = ph.resolve_rounds_dual(*dr_args, **d_r_kw)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["extract_chain"], LAUNCHES["rowwise_select"]) == (before[0] + 8,
+                                                                       before[1] + 8)
+    assert got[0].mean() > 0.1 and dgot[0].mean() > 0.02
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(dgot.view(torch.int32), dref.view(torch.int32))

@@ -93,7 +93,7 @@ def box():
 
 
 def test_config_fields_and_defaults_match():
-    dropped = {"march_unroll", "packed_temporal", "fused_schedule", "pallas_extract"}
+    dropped = {"march_unroll", "packed_temporal", "fused_schedule"}
     jf = {f.name: f.default for f in dataclasses.fields(jconfig.PTConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(tconfig.PTConfig)}
     assert set(jf) - set(tf) == dropped and set(tf) <= set(jf)

@@ -2,10 +2,13 @@
 
 ``PTConfig`` (tracer constants), ``PTVariants`` (shader-keyword axes) and
 ``PTSettings`` (runtime volume settings) keep the JAX package's fields,
-defaults and ``validate()`` ranges. The TPU-only lowering knobs
-(``march_unroll``, ``packed_temporal``, ``fused_schedule``,
-``pallas_extract``) are gone: they changed how XLA/Mosaic compiled the
-same math, and PyTorch has no such choice to make.
+defaults and ``validate()`` ranges. Three TPU-only lowering knobs
+(``march_unroll``, ``packed_temporal``, ``fused_schedule``) are gone:
+they changed how XLA/Mosaic compiled the same math, and PyTorch has no
+such choice to make. ``pallas_extract`` stays: ``True`` runs the resolve
+rounds unfused, as the JAX package writes them, each round through
+kernels K5 (``extract_chain``) and K7 (``rowwise_select``) around a row
+gather, instead of kernel R1; the rows are the same bit for bit.
 
 Behaviour knobs whose code paths are not ported yet stay as fields, so a
 configuration carries over field by field, but ``PTVariants.
@@ -90,6 +93,13 @@ class PTConfig:
     # With the home prefix on, the rounds run compacted from round 0 at
     # this lane fraction; None = dense rounds.
     hiz_home_round_cap: float | None = None
+    # The resolve rounds' form: None or False = kernel R1 (one word per
+    # link); True = unfused, K5 + row gather + K7 per round, as the JAX
+    # package's run_rounds with pallas_extract. The same rows either way,
+    # and the unfused form is slower on the H100 (PERF.md): it exists only
+    # so that K5 and K7 run on a path held against the JAX package, and
+    # carries no other work (ROADMAP Queue 2b plans its removal).
+    pallas_extract: bool | None = None
 
     @classmethod
     def boxscene_headline(cls) -> "PTConfig":

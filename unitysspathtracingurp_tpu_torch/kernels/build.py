@@ -68,6 +68,11 @@ _SIGNATURES = {
     # pointers: cand, 4 fields in, 4 fields out (null past nf), count;
     # ints s, n, k, nf; stream.
     "sspt_pack_by_slot": [P] * 10 + [I] * 4 + [P],
+    # pointers: ptr, 4 fields in, 4 fields out (null past nf); ints n, k,
+    # chain, slot_hi, nf; stream.
+    "sspt_extract_chain": [P] * 9 + [I] * 5 + [P],
+    # pointers: blocks, idx, out; ints n, k; stream.
+    "sspt_rowwise_select": [P] * 3 + [I] * 2 + [P],
 }
 
 

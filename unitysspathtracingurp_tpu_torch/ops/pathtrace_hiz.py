@@ -18,7 +18,12 @@ each lane's insideObject state picks a (test, back) layer combo:
        rounds of up to ``hiz_chain`` links against the f16 depth table;
        with ``hiz_round_cap`` / ``hiz_home_round_cap`` the rounds after
        the first dense one (home: all of them) run on the compacted
-       unresolved lanes.
+       unresolved lanes. With ``PTConfig.pallas_extract`` the rounds run
+       unfused instead (``resolve_rounds_unfused``), one call per round:
+       kernel K5 (``pallas_gather.extract_chain``) extracts the links, a
+       row gather fetches each lane's depth-table row and kernel K7
+       (``pallas_gather.rowwise_select``) selects the texel words; the
+       rows equal R1's bit for bit.
   5.   The finalize (hit interpolation) stays as torch ops.
 
 With ``_debug_out`` (a dict) the march is the JAX package's diagnostic
@@ -48,7 +53,9 @@ from .fused_schedule import (
     march_kwargs, march_steps, pixel_index, project, q40, schedule_pack, schedule_pack_dual,
     schedule_pack_home, schedule_scalars, thickness_cap,
 )
-from .pallas_gather import broadcast_table_select, pack_by_slot
+from .pallas_gather import (
+    broadcast_table_select, extract_chain, pack_by_slot, row_gather, rowwise_select,
+)
 from .pathtrace import REAL_EPS, MarchResult, compact_capacity, compact_indices, trace_frame
 
 # Rows of the (11, N) resolve-state table both R1 versions return.
@@ -65,22 +72,25 @@ def default_rounds(height: int, width: int) -> int:
     return 4 if min(height, width) >= 720 else 10
 
 
-def _resolve_plain(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
-                   table, scalars, dual, *, gh, gw, n_rounds, chain, s_max,
-                   pairs_x=0, tiles_x=0, tiles_per_combo=0, has_back=False,
-                   state=None, links_out=None):
-    """The plain versions of R1 (``dual`` None, pair table) and its dual
-    mode (``dual`` = (pk_step, combo, search), tile table). ``state``
-    (1 + rows, N), ptr then the resolve rows, is the state the rounds
-    start from, and the result then has the same layout; None starts
-    from ptr 0 and the zero state and returns the rows alone. A list
-    ``links_out`` receives the per-lane count of links tested (one table
-    word and one slot each): the work a bound on the kernel counts."""
-    k, n = pk_cum.shape
+def _resolve_rounds_torch(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
+                          table, scalars, dual, *, links, gh, gw, n_rounds, chain, s_max,
+                          pairs_x=0, tiles_x=0, tiles_per_combo=0, has_back=False,
+                          state=None, links_out=None):
+    """The resolve rounds as torch ops, on the plain layout (``dual``
+    None, pair table) or the dual one (``dual`` = (pk_step, combo,
+    search), tile table). ``links`` is the link source and chooses the
+    form: ``_read_links`` is R1's plain version, ``_extract_links`` the
+    unfused form through K5 and K7; both share the link math and the hit
+    rule, so their rows are equal. ``state`` (1 + rows, N), ptr then the
+    resolve rows, is the state the rounds start from, and the result then
+    has the same layout; None starts from ptr 0 and the zero state and
+    returns the rows alone. A list ``links_out`` receives the per-lane
+    count of links tested (one table word and one slot each): the work a
+    bound on the kernel counts."""
+    n = pk_cum.shape[1]
     dev = pk_cum.device
     m = [scalars[i] for i in range(16)]
     zz, zw = scalars[16], scalars[17]
-    words_all = table.reshape(-1)
     n_cand = n_cand.to(torch.int64)
     fields = RESOLVE_FIELDS if dual is None else RESOLVE_FIELDS + DUAL_FIELDS
     if state is None:
@@ -95,102 +105,153 @@ def _resolve_plain(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
             st[key] = st[key] > 0.5
     for key in ("hit_prev", "hit_ixy", "prev_sidx"):
         st[key] = st[key].to(torch.int64)
+    pk = [pk_cum, pk_scode, pk_hist]
+    search = row_off = None
     if dual is not None:
         pk_step, combo, search = dual
+        pk.append(pk_step)
         row_off = combo.to(torch.int64) * tiles_per_combo
+    link = partial(_link, m, zz, zw, ray_pos, ray_dir, gh=gh, gw=gw, pairs_x=pairs_x,
+                   tiles_x=tiles_x, dual=dual is not None)
     tested = torch.zeros_like(ptr)
-    for _ in range(n_rounds):
+    for r in range(n_rounds):
         chain_on = ~st["hit"] & (ptr < n_cand)
         adv = torch.zeros_like(ptr)
         pair0 = None
-        for j in range(chain):
-            s = ptr + j
-            valid = chain_on & (s < n_cand)
-            sc = torch.clamp(s, max=k - 1)[None]
-            cd = pk_cum.gather(0, sc)[0]
-            scode = pk_scode.gather(0, sc)[0]
-            hist = pk_hist.gather(0, sc)[0]
-            th = torch.div(scode, 8192.0, rounding_mode="floor") * 0.025
-            sbase = torch.remainder(scode, 8192.0)
-            s_idx = torch.remainder(sbase, 65.0).to(torch.int64)
-            p_idx = torch.div(sbase, 65.0, rounding_mode="floor").to(torch.int64) - 1
-            lcum = torch.div(hist, 4096.0, rounding_mode="floor") * 0.025
-            lhd = torch.remainder(hist, 4096.0) * 0.025
-
-            u, v, raw = project(m, ray_pos[:, 0] + cd * ray_dir[:, 0],
-                                ray_pos[:, 1] + cd * ray_dir[:, 1],
-                                ray_pos[:, 2] + cd * ray_dir[:, 2])
-            hitd = 1.0 / (raw * zz + zw)
-            ix = pixel_index(u, gw)
-            iy = pixel_index(v, gh)
-            if dual is None:
-                pair, texel, high = pair_of(ix, iy, pairs_x)
-            else:
-                pair, texel = tile_of(ix, iy, tiles_x)
+        for j, (lk, word) in enumerate(links(r, pk, ptr, chain, link, chain_on, table, row_off)):
+            valid = chain_on & (ptr + j < n_cand)
             if j == 0:
-                pair0 = pair
+                pair0 = lk["pair"]
             else:
-                valid = valid & (pair == pair0)
+                valid = valid & (lk["pair"] == pair0)
             tested = tested + valid.to(torch.int64)
-            if dual is None:
-                d_raw = unpack_pair_half(words_all[pair * 128 + texel], high)
-                scene = 1.0 / (d_raw * zz + zw)
-                is_sky = d_raw == 0.0
-                d = scene - hitd
-                halvings = torch.ceil(torch.log2(
-                    torch.clamp(-d / torch.clamp(th, min=1e-6), min=1.0)
-                ))
-                budget_ok = (s_idx + 1).to(torch.float32) + halvings <= float(s_max)
-                in_window = (d >= -th) | (is_back & budget_ok)
-                hit_now = valid & (d <= 0.0) & in_window & ~is_sky
-            else:
-                step = pk_step.gather(0, sc)[0] * 0.025
-                t_raw, b_raw = unpack_dual(words_all[((pair + row_off) * 128) + texel])
-                scene = 1.0 / (t_raw * zz + zw)
-                is_sky = t_raw == 0.0
-                scene_back = 1.0 / (b_raw * zz + zw)
-                back_ok = (b_raw != 0.0) & (scene_back >= scene)
-                d = scene - hitd
-                # Signed diff (hlsl:127-136): back rays beyond a valid back
-                # surface bracket that surface instead.
-                is_bs = is_back & (hitd > scene_back) & back_ok
-                sd = torch.where(is_bs, torch.where(back_ok, hitd - scene_back, d - th), d)
-                # Hit windows (hlsl:168-181): backed runs to
-                # max(back, test + step), plain is the thickness window.
-                hit_backed = (d <= 0.0) & (hitd <= torch.maximum(scene_back, scene + step))
-                hit_plain = (d <= 0.0) & (d >= -th)
-                base_hit = torch.where(back_ok, hit_backed, hit_plain)
-                halvings = torch.ceil(torch.log2(
-                    torch.clamp(-d / torch.clamp(th, min=1e-6), min=1.0)
-                ))
-                budget_ok = (s_idx + 1).to(torch.float32) + halvings <= float(s_max)
-                search_ok = search
-                if has_back:
-                    search_ok = search_ok | (~is_back & back_ok & (hitd <= scene_back))
-                hit_now = valid & ~is_sky & (base_hit | (search_ok & (d <= 0.0) & budget_ok))
-                back_hit_now = hit_now & back_ok & (hitd > scene_back) & (sd >= 0.0)
-                st["hit_sd"] = torch.where(hit_now, sd, st["hit_sd"])
-                st["hit_back"] = torch.where(hit_now, back_hit_now, st["hit_back"])
-                st["hit_via_search"] = torch.where(hit_now, ~base_hit, st["hit_via_search"])
-
-            for key, val in (("hit_cum", cd), ("hit_diff", d), ("hit_th", th),
-                             ("hit_hitd", hitd), ("hit_lcum", lcum),
-                             ("hit_lhd", lhd), ("hit_prev", p_idx),
-                             ("hit_ixy", iy * gw + ix)):
-                st[key] = torch.where(hit_now, val, st[key])
-            fail = valid & ~hit_now
-            st["prev_diff"] = torch.where(fail, d, st["prev_diff"])
-            st["prev_sidx"] = torch.where(fail, s_idx, st["prev_sidx"])
-            if dual is not None:
-                st["prev_sd"] = torch.where(fail, sd, st["prev_sd"])
+            fail = _hit_rule(st, lk, word, valid, is_back, search, zz=zz, zw=zw, s_max=s_max,
+                             has_back=has_back)
             adv = adv + fail.to(torch.int64)
-            st["hit"] = st["hit"] | hit_now
             chain_on = fail
         ptr = ptr + adv
     if links_out is not None:
         links_out.append(tested)
     rows = [st[key].to(torch.float32) for key in fields]
     return torch.stack(rows if rows_only else [ptr.to(torch.float32)] + rows)
+
+
+def _link(m, zz, zw, ray_pos, ray_dir, cd, scode, hist, step=None, *, gh, gw, pairs_x,
+          tiles_x, dual):
+    """One link from its slot fields: the decoded codes, the position
+    re-derived from the march distance and its projection, and its
+    depth-table row (``pair``; the tile row in the dual layout) and word."""
+    th = torch.div(scode, 8192.0, rounding_mode="floor") * 0.025
+    sbase = torch.remainder(scode, 8192.0)
+    u, v, raw = project(m, ray_pos[:, 0] + cd * ray_dir[:, 0],
+                        ray_pos[:, 1] + cd * ray_dir[:, 1],
+                        ray_pos[:, 2] + cd * ray_dir[:, 2])
+    ix = pixel_index(u, gw)
+    iy = pixel_index(v, gh)
+    lk = dict(
+        cd=cd, th=th,
+        s_idx=torch.remainder(sbase, 65.0).to(torch.int64),
+        p_idx=torch.div(sbase, 65.0, rounding_mode="floor").to(torch.int64) - 1,
+        lcum=torch.div(hist, 4096.0, rounding_mode="floor") * 0.025,
+        lhd=torch.remainder(hist, 4096.0) * 0.025,
+        hitd=1.0 / (raw * zz + zw), ixy=iy * gw + ix,
+    )
+    if dual:
+        lk["pair"], lk["texel"] = tile_of(ix, iy, tiles_x)
+        lk["step"] = step * 0.025
+    else:
+        lk["pair"], lk["texel"], lk["high"] = pair_of(ix, iy, pairs_x)
+    return lk
+
+
+def _read_links(r, pk, ptr, chain, link, active, table, row_off):
+    """R1's form: link j's slot fields read at ptr + j and its texel as
+    one table word, link by link, with torch ops only."""
+    k = pk[0].shape[0]
+    words_all = table.reshape(-1)
+    for j in range(chain):
+        sc = torch.clamp(ptr + j, max=k - 1)[None]
+        lk = link(*[f.gather(0, sc)[0] for f in pk])
+        row = lk["pair"] if row_off is None else lk["pair"] + row_off
+        yield lk, words_all[row * 128 + lk["texel"]]
+
+
+def _extract_links(round_base, r, pk, ptr, chain, link, active, table, row_off):
+    """The unfused form (pathtrace_hiz.py:612-725 of the JAX package) of
+    global round ``round_base + r``: K5 extracts every link's slot fields
+    in the window [0, min(K, (round_base + r + 1) * chain)), one table row
+    per lane (link 0's where the lane is active, row 0 elsewhere) is
+    gathered, and K7 selects each link's texel word from it. Later links
+    are valid only inside link 0's row, so the words of valid links are
+    R1's."""
+    slot_hi = min(pk[0].shape[0], (round_base + r + 1) * chain)
+    ext = extract_chain(pk, ptr, chain, slot_hi)
+    links = [link(*[e[j] for e in ext]) for j in range(chain)]
+    row = links[0]["pair"] if row_off is None else links[0]["pair"] + row_off
+    # (N, 128) words, ~1 GB at 1080p: freed as soon as K7 has run.
+    words = rowwise_select(row_gather(table, torch.where(active, row, 0)),
+                           torch.stack([lk["texel"] for lk in links], 1))
+    return [(lk, words[:, j]) for j, lk in enumerate(links)]
+
+
+def _hit_rule(st, lk, word, valid, is_back, search, *, zz, zw, s_max, has_back):
+    """The exact test of one link against its texel word (the JAX
+    package's pathtrace_hiz.py:729-840; ``search`` None on the plain
+    layout), folded into the resolve state ``st``. Returns the lanes
+    whose valid link failed."""
+    if search is None:
+        d_raw = unpack_pair_half(word, lk["high"])
+        scene = 1.0 / (d_raw * zz + zw)
+        is_sky = d_raw == 0.0
+        d = scene - lk["hitd"]
+        halvings = torch.ceil(torch.log2(
+            torch.clamp(-d / torch.clamp(lk["th"], min=1e-6), min=1.0)
+        ))
+        budget_ok = (lk["s_idx"] + 1).to(torch.float32) + halvings <= float(s_max)
+        in_window = (d >= -lk["th"]) | (is_back & budget_ok)
+        hit_now = valid & (d <= 0.0) & in_window & ~is_sky
+    else:
+        hitd, th = lk["hitd"], lk["th"]
+        t_raw, b_raw = unpack_dual(word)
+        scene = 1.0 / (t_raw * zz + zw)
+        is_sky = t_raw == 0.0
+        scene_back = 1.0 / (b_raw * zz + zw)
+        back_ok = (b_raw != 0.0) & (scene_back >= scene)
+        d = scene - hitd
+        # Signed diff (hlsl:127-136): back rays beyond a valid back
+        # surface bracket that surface instead.
+        is_bs = is_back & (hitd > scene_back) & back_ok
+        sd = torch.where(is_bs, torch.where(back_ok, hitd - scene_back, d - th), d)
+        # Hit windows (hlsl:168-181): backed runs to
+        # max(back, test + step), plain is the thickness window.
+        hit_backed = (d <= 0.0) & (hitd <= torch.maximum(scene_back, scene + lk["step"]))
+        hit_plain = (d <= 0.0) & (d >= -th)
+        base_hit = torch.where(back_ok, hit_backed, hit_plain)
+        halvings = torch.ceil(torch.log2(
+            torch.clamp(-d / torch.clamp(th, min=1e-6), min=1.0)
+        ))
+        budget_ok = (lk["s_idx"] + 1).to(torch.float32) + halvings <= float(s_max)
+        search_ok = search
+        if has_back:
+            search_ok = search_ok | (~is_back & back_ok & (hitd <= scene_back))
+        hit_now = valid & ~is_sky & (base_hit | (search_ok & (d <= 0.0) & budget_ok))
+        back_hit_now = hit_now & back_ok & (hitd > scene_back) & (sd >= 0.0)
+        st["hit_sd"] = torch.where(hit_now, sd, st["hit_sd"])
+        st["hit_back"] = torch.where(hit_now, back_hit_now, st["hit_back"])
+        st["hit_via_search"] = torch.where(hit_now, ~base_hit, st["hit_via_search"])
+
+    for key, val in (("hit_cum", lk["cd"]), ("hit_diff", d), ("hit_th", lk["th"]),
+                     ("hit_hitd", lk["hitd"]), ("hit_lcum", lk["lcum"]),
+                     ("hit_lhd", lk["lhd"]), ("hit_prev", lk["p_idx"]),
+                     ("hit_ixy", lk["ixy"])):
+        st[key] = torch.where(hit_now, val, st[key])
+    fail = valid & ~hit_now
+    st["prev_diff"] = torch.where(fail, d, st["prev_diff"])
+    st["prev_sidx"] = torch.where(fail, lk["s_idx"], st["prev_sidx"])
+    if search is not None:
+        st["prev_sd"] = torch.where(fail, sd, st["prev_sd"])
+    st["hit"] = st["hit"] | hit_now
+    return fail
 
 
 def zero_state(n: int, dual: bool, device):
@@ -209,10 +270,10 @@ def resolve_rounds_ref(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir,
     reading each link's fields at ptr + j and its texel as one pair-table
     word. Returns the (11, N) f32 resolve state, or with ``state`` (the
     (12, N) ptr + rows to start from) the (12, N) state after the rounds."""
-    return _resolve_plain(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
-                          pair_table, scalars, None, gh=gh, gw=gw, pairs_x=pairs_x,
-                          n_rounds=n_rounds, chain=chain, s_max=s_max, state=state,
-                          links_out=links_out)
+    return _resolve_rounds_torch(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
+                                 pair_table, scalars, None, links=_read_links, gh=gh, gw=gw,
+                                 pairs_x=pairs_x, n_rounds=n_rounds, chain=chain, s_max=s_max,
+                                 state=state, links_out=links_out)
 
 
 def resolve_rounds_dual_ref(pk_cum, pk_scode, pk_hist, pk_step, n_cand, ray_pos,
@@ -224,11 +285,44 @@ def resolve_rounds_dual_ref(pk_cum, pk_scode, pk_hist, pk_step, n_cand, ray_pos,
     link reads ONE tile-table word, row combo * tiles_per_combo + tile,
     holding the (test, back) raw depths. Returns the (15, N) f32 state:
     RESOLVE_FIELDS then DUAL_FIELDS; with ``state`` (16, N), ptr first."""
-    return _resolve_plain(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
-                          tile_table, scalars, (pk_step, combo, search), gh=gh, gw=gw,
-                          tiles_x=tiles_x, tiles_per_combo=tiles_per_combo,
-                          n_rounds=n_rounds, chain=chain, s_max=s_max, has_back=has_back,
-                          state=state, links_out=links_out)
+    return _resolve_rounds_torch(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
+                                 tile_table, scalars, (pk_step, combo, search),
+                                 links=_read_links, gh=gh, gw=gw, tiles_x=tiles_x,
+                                 tiles_per_combo=tiles_per_combo, n_rounds=n_rounds, chain=chain,
+                                 s_max=s_max, has_back=has_back, state=state, links_out=links_out)
+
+
+def resolve_rounds_unfused(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
+                           pair_table, scalars, *, gh, gw, pairs_x, n_rounds, chain, s_max,
+                           state=None, round_base=0):
+    """The resolve rounds unfused, as the JAX package's ``run_rounds``
+    with ``PTConfig.pallas_extract`` (pathtrace_hiz.py:601-843): per
+    round K5 (``extract_chain``), torch link math, one pair-table row per
+    lane (``row_gather``) and K7 (``rowwise_select``). ``round_base`` is
+    the global index of the first round: it sets each round's slot window
+    min(K, (round_base + r + 1) * chain). Returns what ``resolve_rounds``
+    returns, bit for bit; CUDA tensors run the kernels, CPU tensors their
+    plain versions."""
+    return _resolve_rounds_torch(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
+                                 pair_table, scalars, None,
+                                 links=partial(_extract_links, round_base), gh=gh, gw=gw,
+                                 pairs_x=pairs_x, n_rounds=n_rounds, chain=chain, s_max=s_max,
+                                 state=state)
+
+
+def resolve_rounds_dual_unfused(pk_cum, pk_scode, pk_hist, pk_step, n_cand, ray_pos, ray_dir,
+                                is_back, combo, search, tile_table, scalars, *, gh, gw, tiles_x,
+                                tiles_per_combo, n_rounds, chain, s_max, has_back, state=None,
+                                round_base=0):
+    """``resolve_rounds_unfused`` on the dual layout: K5 with the four
+    slot fields, the tile-table row combo * tiles_per_combo + tile.
+    Returns what ``resolve_rounds_dual`` returns, bit for bit."""
+    return _resolve_rounds_torch(pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir, is_back,
+                                 tile_table, scalars, (pk_step, combo, search),
+                                 links=partial(_extract_links, round_base), gh=gh, gw=gw,
+                                 tiles_x=tiles_x, tiles_per_combo=tiles_per_combo,
+                                 n_rounds=n_rounds, chain=chain, s_max=s_max, has_back=has_back,
+                                 state=state)
 
 
 def _state_args(state, rows, n, dev):
@@ -493,25 +587,29 @@ def ray_march_hiz(cfg, settings, variants, gb, cam, ray_pos, ray_dir, inside,
         resolve_kw.update(tiles_x=tiles.tiles_x, tiles_per_combo=tiles.tiles_per_combo,
                           has_back=bool(variants.backface_textures))
 
-    def resolve(ln, st, rounds):
+    def resolve(ln, st, rounds, base):
+        """``rounds`` rounds from state ``st``, the first of them global
+        round ``base``: R1, or with ``pallas_extract`` the unfused form."""
+        kw = dict(resolve_kw, state=st, n_rounds=rounds)
+        if cfg.pallas_extract:
+            kw["round_base"] = base
         if dual:
-            return resolve_rounds_dual(
-                ln["pk_cum"], ln["pk_scode"], ln["pk_hist"], ln["pk_step"], ln["n_cand"],
-                ln["pos"], ln["dir"], ln["back"], ln["combo"], ln["search"], tiles.tile_table,
-                scalars, state=st, n_rounds=rounds, **resolve_kw)
-        return resolve_rounds(
-            ln["pk_cum"], ln["pk_scode"], ln["pk_hist"], ln["n_cand"], ln["pos"], ln["dir"],
-            ln["back"], tiles.pair_table, scalars, state=st, pairs_x=tiles.pairs_x,
-            n_rounds=rounds, **resolve_kw)
+            fn = resolve_rounds_dual_unfused if cfg.pallas_extract else resolve_rounds_dual
+            return fn(ln["pk_cum"], ln["pk_scode"], ln["pk_hist"], ln["pk_step"], ln["n_cand"],
+                      ln["pos"], ln["dir"], ln["back"], ln["combo"], ln["search"],
+                      tiles.tile_table, scalars, **kw)
+        fn = resolve_rounds_unfused if cfg.pallas_extract else resolve_rounds
+        return fn(ln["pk_cum"], ln["pk_scode"], ln["pk_hist"], ln["n_cand"], ln["pos"],
+                  ln["dir"], ln["back"], tiles.pair_table, scalars, pairs_x=tiles.pairs_x, **kw)
 
     def run_rounds(ln, st, rounds, base):
         """``rounds`` rounds from state ``st``; the diagnostic march runs
         them one at a time to count the active lanes of each."""
         if _debug_out is None:
-            return resolve(ln, st, rounds) if rounds > 0 else st
+            return resolve(ln, st, rounds, base) if rounds > 0 else st
         for r in range(rounds):
             _debug_out[f"{pfx}active_r{base + r}"] = _active(st, ln["n_cand"]).sum()
-            st = resolve(ln, st, 1)
+            st = resolve(ln, st, 1, base + r)
         return st
 
     # Round compaction (pathtrace_hiz.py:845-905): with the home prefix
@@ -523,7 +621,7 @@ def ray_march_hiz(cfg, settings, variants, gb, cam, ray_pos, ray_dir, inside,
     else:
         dense, cap = n_rounds, None
     if state is None and cap is None and _debug_out is None:
-        res = resolve(lanes, None, n_rounds)
+        res = resolve(lanes, None, n_rounds, 0)
     else:
         if state is None:
             state = zero_state(n, dual, pos_n.device)
