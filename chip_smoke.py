@@ -234,6 +234,7 @@ def check_kernels(h, w, dev, timing: bool):
     got = fs.schedule_pack(*k1_args, **k1_kw)
     ref = fs.schedule_pack_ref(*k1_args, **k1_kw)
     torch.cuda.synchronize()
+    k1_equal = all(torch.equal(a, b) for a, b in zip(got, ref))
     same_n = (got[3] == ref[3]).float().mean().item()
     same_scode = got[1] == ref[1]
     scode_eq = same_scode.float().mean().item()
@@ -242,12 +243,16 @@ def check_kernels(h, w, dev, timing: bool):
     d_lhd = (torch.remainder(got[2], 4096) - torch.remainder(ref[2], 4096)).abs()[same_scode]
     k1_err = (got[0] - ref[0]).abs()[same_scode].max().item()
     hist_codes = max(d_lcum.max().item(), d_lhd.max().item())
-    print(f"phase 3 K1 schedule_pack {w}x{h}: n_cand equal {same_n:.6f}, "
-          f"scode equal {scode_eq:.6f}, hist max code diff {hist_codes:.0f}, "
+    threads, smem = fs.pack_budget(tiles.mini_table.numel(), k1_kw["k"], 3)
+    print(f"phase 3 K1 schedule_pack {w}x{h}: all 4 outputs equal {k1_equal}, n_cand equal "
+          f"{same_n:.6f}, scode equal {scode_eq:.6f}, hist max code diff {hist_codes:.0f}, "
           f"cum max abs err {k1_err:.3e}, lanes with candidates "
-          f"{(ref[3] > 0).float().mean().item():.4f}")
+          f"{(ref[3] > 0).float().mean().item():.4f}, lanes at K "
+          f"{(ref[3] == k1_kw['k']).float().mean().item():.4f}; {threads} threads a block, "
+          f"{smem} B dynamic shared")
     gate(same_n >= 0.9999 and scode_eq >= 0.9999, "K1 n_cand/scode agreement")
     gate(hist_codes <= 1.0 and k1_err < 1e-5, "K1 hist/cum agreement")
+    gate(k1_equal, "K1 bit-exact against its plain version")
 
     r1_args = (*ref[:4], k1_args[0], k1_args[1], is_back, tiles.pair_table, scalars)
     r1_kw = dict(gh=h, gw=w, pairs_x=tiles.pairs_x,
@@ -273,15 +278,11 @@ def check_kernels(h, w, dev, timing: bool):
 
     out = {"schedule_pack": {"max_abs_err": k1_err}, "resolve_rounds": {"max_abs_err": r1_err}}
     if timing:
-        n_links = float(links[0].sum())
         out["schedule_pack"].update(bound(
             n * (12 + 12 + 4 + 4 + 1 + 1) + n * (16 * 12 + 4) + tiles.mini_table.numel() * 4,
             n * 24 * STEP_OPS))
-        # Per link: the three slot fields; the pair table is L2-resident,
-        # so it is read from memory at most once.
-        table = min(n_links * 4, tiles.pair_table.numel() * 4)
-        out["resolve_rounds"].update(bound(
-            n * (12 + 12 + 1 + 4) + n_links * 12 + table + n * 11 * 4, n_links * STEP_OPS))
+        out["resolve_rounds"].update(r1_bound(n, float(links[0].sum()),
+                                              tiles.pair_table.numel()))
         out["schedule_pack"]["ms"] = cuda_ms(lambda: fs.schedule_pack(*k1_args, **k1_kw), 20)
         out["schedule_pack"]["plain_ms"] = cuda_ms(
             lambda: fs.schedule_pack_ref(*k1_args, **k1_kw), 3)
@@ -427,9 +428,12 @@ def check_dual_kernels(h, w, dev, timing: bool):
         torch.cuda.synchronize()
         r1_equal = torch.equal(res_k, res_r)
         r1_err = (res_k - res_r).abs().max().item()
+        threads, smem = fs.pack_budget(0, k4_kw["k"], 4)
         print(f"phase 3 K4 schedule_pack_dual {w}x{h} inside {inside}: all 5 outputs equal "
               f"{k4_equal}, max abs err {k4_err:.3e}, lanes with candidates "
-              f"{(ref[4] > 0).float().mean().item():.4f}; R1 dual resolve_rounds_dual: "
+              f"{(ref[4] > 0).float().mean().item():.4f}, lanes at K "
+              f"{(ref[4] == k4_kw['k']).float().mean().item():.4f} ({threads} threads a "
+              f"block, {smem} B dynamic shared); R1 dual resolve_rounds_dual: "
               f"15 rows equal {r1_equal}, max abs err {r1_err:.3e}, hit fraction "
               f"{res_r[0].mean().item():.4f}, back hits {res_r[13].mean().item():.4f}, "
               f"search hits {(res_r[14] * res_r[0]).mean().item():.4f}")
@@ -661,6 +665,43 @@ def check_home_march(dev):
     gate(agree >= 0.999 and dd < 1e-4 and uv >= 0.999, "home march equals the non-home march")
 
 
+def first_calls(dev, path: str, name: str):
+    """(args, kwargs) of the first call of ``pathtrace_hiz.<name>`` (its
+    bounce 0) in one 1080p frame of ``path``, on the kernels."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+
+    s, cfg, bde, glass = path_config(path)
+    gb, cam = boxscene(H_FULL, W_FULL, dev, glass=glass)
+    probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+    seen = []
+    real = getattr(ph, name)
+
+    def spy(*a, **kw):
+        if not seen:
+            seen.append((a, kw))
+        return real(*a, **kw)
+
+    setattr(ph, name, spy)
+    try:
+        ph.trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, back_depth_enabled=bde)
+        torch.cuda.synchronize()
+    finally:
+        setattr(ph, name, real)
+    return seen[0]
+
+
+def r1_bound(n: int, n_links: float, table_words: int) -> dict:
+    """R1's bound: per lane its ray state, slot counts and the 11 f32
+    rows out; per link the three slot fields; the L2-resident pair table
+    read from memory at most once."""
+    table = min(n_links * 4, table_words * 4)
+    return bound(n * (12 + 12 + 1 + 4) + n_links * 12 + table + n * 11 * 4,
+                 n_links * STEP_OPS)
+
+
 def diagnostic_report(dev, card):
     """Phase 6, a report except for the launch counts: the diagnostic
     march through a 1080p headline frame (counts set to 0 before and read
@@ -752,6 +793,22 @@ def diagnostic_report(dev, card):
         *lane_args, is_back, tiles.mini_table, strips, scalars, home_shape=(H_FULL, W_FULL),
         **k1_kw), 20)
     print(f"phase 6 bounce-0 rays of the frame: K1 {k1_ms:.4f} ms, K6 {k6_ms:.4f} ms [{card}]")
+
+    # R1 on the headline frame's own bounce-0 inputs, K4 on the dual
+    # frame's, each against its bound at those inputs.
+    r1_a, r1_kw = first_calls(dev, "headline", "resolve_rounds")
+    links = []
+    ph.resolve_rounds_ref(*r1_a, **r1_kw, links_out=links)
+    r1_b = r1_bound(r1_a[0].shape[1], float(links[0].sum()), r1_a[7].numel())
+    r1_ms = cuda_ms(lambda: ph.resolve_rounds(*r1_a, **r1_kw), 20)
+    k4_a, k4_kw = first_calls(dev, "dual", "schedule_pack_dual")
+    n4 = k4_a[0].shape[0]
+    k4_b = bound(n4 * (12 + 12 + 4 + 4 + 1 + 4 + 1) + n4 * (16 * 16 + 4)
+                 + (k4_a[7].numel() + k4_a[8].numel()) * 4, n4 * 24 * STEP_OPS)
+    k4_ms = cuda_ms(lambda: fs.schedule_pack_dual(*k4_a, **k4_kw), 20)
+    print(f"phase 6 bounce-0 rays of the frames: R1 (headline, {r1_a[0].shape[1]} lanes, "
+          f"{r1_kw['n_rounds']} rounds) {r1_ms:.4f} ms, bound {r1_b['bound_ms']:.4f} ms; K4 "
+          f"(dual, {n4} lanes) {k4_ms:.4f} ms, bound {k4_b['bound_ms']:.4f} ms [{card}]")
 
     # The A/B: home x n_rounds, with the 0.4 cap and without, against the
     # non-home headline (4 rounds) and against the non-home frame at an
@@ -980,7 +1037,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from unitysspathtracingurp_tpu_torch.kernels.build import load_library
+        from unitysspathtracingurp_tpu_torch.kernels.build import load_library, resource_usage
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -993,6 +1050,10 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     print(f"phase 2 kernels built and loaded in {time.perf_counter() - t0:.3f} s")
+    for r in resource_usage():
+        print(f"phase 2 ptxas {r['kernel']}: {r['regs']} registers, {r['smem']} B static "
+              f"shared, spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
+              f"stack {r['stack']} B")
 
     stats = {}
     for h, w in ((256, 256), (H_FULL, W_FULL)):

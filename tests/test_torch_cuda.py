@@ -12,6 +12,8 @@ operation chain (the kernels build with --fmad=false, divides are IEEE)
 on the same device.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -28,11 +30,8 @@ pytestmark = pytest.mark.cuda
 H, W = 96, 160
 
 
-@pytest.fixture(scope="module")
-def case():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    dev = torch.device("cuda", 0)
+def _k1_inputs(dev):
+    """Incoherent random rays in BoxScene at 96x160 lanes, plain tiles."""
     cam = fixtures.box_scene_camera(H, W, device=dev)
     gb = fixtures.rasterize_gbuffers(scene.build_box_scene(), cam, H, W, device=dev)
     tiles = build_depth_tiles(gb.depth, cam.near, cam.far)
@@ -48,16 +47,77 @@ def case():
     return tiles, k1_args, fs.march_kwargs(PTConfig(), tiles, 24)
 
 
-def test_schedule_pack_kernel_bit_exact(case):
-    _, args, kw = case
+@pytest.fixture(scope="module")
+def case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _k1_inputs(torch.device("cuda", 0))
+
+
+# The cases of K1 / K4 against their plain versions, for the kernels'
+# early exit and row-wise slot writes: the fixture's incoherent random
+# rays at s_max 24; s_max 8 (K = 8) and 40 (K = 16); N not a multiple of
+# any block size; every lane dead; and many lanes past K candidates
+# (every lane a back ray / search lane, 0.1 steps, 40 steps: on the plain
+# versions 54% of K1's lanes, 33% / 9% / 28% of K4's with insideObject
+# 0 / 1 / 2, against 0-8% for the random case), so the full-pack exit
+# runs. K1 adds "block 512": its table padded to 1080p's 4,096 words
+# (the padding is never indexed), so the budget picks the 512-thread
+# block of 112 KB that the 1080p main path launches, above the 48 KB
+# that needs cudaFuncSetAttribute. K4 stages 32 KB in 128-thread blocks
+# at every size.
+PACK_CASES = ("random", "s_max 8", "s_max 40", "ragged", "dead", "full")
+
+
+def pack_case(args, kw, tiles, case: str, flag: int):
+    """One PACK_CASES case of K1's or K4's inputs. ``flag`` is the index
+    of the lane mask that makes every processed step deep enough a
+    candidate (K1: is_back, K4: search); the lane arguments precede it."""
+    args, kw = list(args), dict(kw)
+    n = args[0].shape[0]
+    if case.startswith("s_max"):
+        kw.update(fs.march_kwargs(PTConfig(), tiles, int(case.split()[1])))
+    elif case == "ragged":
+        args[:flag + 1] = [a[:n - 77] for a in args[:flag + 1]]
+    elif case == "dead":
+        args[4] = torch.zeros_like(args[4])
+    elif case == "full":
+        args[flag] = torch.ones_like(args[flag])
+        args[3] = torch.full_like(args[3], 0.1)
+        cfg = dataclasses.replace(PTConfig(), small_step_size=0.1, medium_step_size=0.1)
+        kw.update(fs.march_kwargs(cfg, tiles, 40))
+    elif case == "block 512":
+        table = args[flag + 1]  # (chunks, 128) words
+        args[flag + 1] = torch.cat([table, table.new_zeros(32 - table.shape[0], 128)])
+        assert fs.pack_budget(4096, kw["k"], 3) == (512, 114688)
+    return args, kw
+
+
+def check_pack_case(ref, case: str, k: int, with_candidates: float):
+    """The case exercises what it is for (on the plain version's outputs):
+    at least ``with_candidates`` of the lanes hold a candidate, unless
+    every lane is dead."""
+    count = ref[-1]
+    if case == "dead":
+        assert not count.any() and not any(r.any() for r in ref[:-1])
+    elif case == "full":
+        assert (count == k).float().mean() > 0.05
+    else:
+        assert (count > 0).float().mean() > with_candidates
+
+
+@pytest.mark.parametrize("pcase", PACK_CASES + ("block 512",))
+def test_schedule_pack_kernel_bit_exact(case, pcase):
+    tiles, args, kw = case
+    args, kw = pack_case(args, kw, tiles, pcase, 5)
     before = LAUNCHES["schedule_pack"]
     got = fs.schedule_pack(*args, **kw)
     ref = fs.schedule_pack_ref(*args, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["schedule_pack"] == before + 1
-    assert (ref[3] > 0).float().mean() > 0.2
+    check_pack_case(ref, pcase, kw["k"], 0.2 if pcase in ("random", "block 512") else 0.1)
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 def test_resolve_rounds_kernel_bit_exact(case):
@@ -74,13 +134,9 @@ def test_resolve_rounds_kernel_bit_exact(case):
     assert torch.equal(got, ref)
 
 
-@pytest.fixture(scope="module")
-def dual_case():
+def _dual_inputs(dev):
     """Random rays in the glass box at 256^2 lanes, with the refraction +
     backface (3-combo) tiles."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    dev = torch.device("cuda", 0)
     h = w = 256
     cam = fixtures.box_scene_camera(h, w, device=dev)
     gb = fixtures.rasterize_gbuffers(scene.build_box_scene(with_glass=True, with_mirror=False),
@@ -97,6 +153,13 @@ def dual_case():
     return dev, n, h, w, cam, tiles, origin, d, fs.march_kwargs(PTConfig(), tiles, 24)
 
 
+@pytest.fixture(scope="module")
+def dual_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _dual_inputs(torch.device("cuda", 0))
+
+
 def _dual_args(dual_case, inside):
     dev, n, h, w, cam, tiles, origin, d, kw = dual_case
     back = d[:, 2] > 0.3
@@ -111,17 +174,19 @@ def _dual_args(dual_case, inside):
     return k4_args, k4_kw, back, r_kw
 
 
+@pytest.mark.parametrize("pcase", PACK_CASES)
 @pytest.mark.parametrize("inside", [0, 1, 2])
-def test_schedule_pack_dual_kernel_bit_exact(dual_case, inside):
+def test_schedule_pack_dual_kernel_bit_exact(dual_case, inside, pcase):
     args, kw, _, _ = _dual_args(dual_case, inside)
+    args, kw = pack_case(args, kw, dual_case[5], pcase, 6)
     before = LAUNCHES["schedule_pack_dual"]
     got = fs.schedule_pack_dual(*args, **kw)
     ref = fs.schedule_pack_dual_ref(*args, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["schedule_pack_dual"] == before + 1
-    assert (ref[4] > 0).float().mean() > 0.1
+    check_pack_case(ref, pcase, kw["k"], 0.1)
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert a.shape == b.shape and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("inside", [0, 1, 2])

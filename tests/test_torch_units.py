@@ -391,6 +391,24 @@ def test_cuda_tensor_without_kernel_raises(monkeypatch, kernel):
         build.load_library.cache_clear()
 
 
+def test_pack_budget_bytes_and_block_size():
+    """K1 / K4's shared memory a block: the minitile table (K4: none),
+    then 3 (K4: 4) x K = 16 staged f32 slots a thread, at the block size
+    that keeps the most threads resident; K6's 128-thread block holds the
+    table and its strip and stages nothing; a table too large for a block
+    raises. Minitile words: 256^2 has 8 x 16 minitiles (one 128-word
+    chunk), 1080p 60 x 68 (32 chunks), 3840x2160 120 x 135 (127 chunks)."""
+    from unitysspathtracingurp_tpu_torch.ops.fused_schedule import pack_budget
+
+    for words, threads in ((128, 128), (4096, 512), (16256, 256)):
+        assert pack_budget(words, 16, 3) == (threads, (words + 3 * 16 * threads) * 4)
+    assert pack_budget(0, 16, 4) == (128, 4 * 16 * 128 * 4)
+    home = 4096 + 3 * 6 * 128  # K6: the table and an 18 x 128-word strip
+    assert pack_budget(home, 16, 0, threads=128) == (128, home * 4)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        pack_budget(58 * 1024, 16, 3)
+
+
 # ---------------------------------------------------------------- renderer control flow
 
 

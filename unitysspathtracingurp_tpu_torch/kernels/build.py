@@ -11,6 +11,10 @@ flags. The library is loaded with ``ctypes``; every entry point returns
 same f32 operation chain as its plain PyTorch version: torch's
 elementwise ops round after every operation.
 
+``-Xptxas -v`` makes ptxas report each kernel's registers, static
+shared memory and spills; the report is kept beside the library and
+``resource_usage`` reads it.
+
 ``LAUNCHES`` counts kernel launches per wrapper; only the wrappers add
 to it, once per launch.
 """
@@ -22,6 +26,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,7 +35,7 @@ SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -41,19 +46,20 @@ _SIGNATURES = {
     # mini_table, scalars, pk_cum, pk_scode, pk_hist, n_cand; then ints
     # n, gh, gw, minis_x, n_mini_words, s_max, k, max_small, max_medium;
     # floats small_step, medium_step, thickness, th_inc, step_growth,
-    # th_cap, texel_x, texel_y; stream.
-    "sspt_schedule_pack": [P] * 12 + [I] * 9 + [F] * 8 + [P],
+    # th_cap, texel_x, texel_y; ints threads, smem (the block and its
+    # dynamic shared bytes, fused_schedule.pack_budget); stream.
+    "sspt_schedule_pack": [P] * 12 + [I] * 9 + [F] * 8 + [I] * 2 + [P],
     # pointers: ray_pos, ray_dir, dither, large_step, alive, combo,
     # search, mini_table, bmax_table, scalars, pk_cum, pk_scode, pk_hist,
     # pk_step, n_cand; ints n, gh, gw, minis_x, n_mini_words,
     # combo_words, s_max, k, max_small, max_medium; the same 8 floats;
-    # stream.
-    "sspt_schedule_pack_dual": [P] * 15 + [I] * 10 + [F] * 8 + [P],
+    # ints threads, smem; stream.
+    "sspt_schedule_pack_dual": [P] * 15 + [I] * 10 + [F] * 8 + [I] * 2 + [P],
     # pointers: ray_pos, ray_dir, dither, large_step, alive, is_back,
     # mini_table, strips, scalars, pk_cum, pk_scode, pk_hist, n_cand,
     # home_out; ints h, w (lanes), gh, gw, minis_x, n_mini_words, s_max,
-    # k, max_small, max_medium; the same 8 floats; stream.
-    "sspt_schedule_pack_home": [P] * 14 + [I] * 10 + [F] * 8 + [P],
+    # k, max_small, max_medium; the same 8 floats; int smem; stream.
+    "sspt_schedule_pack_home": [P] * 14 + [I] * 10 + [F] * 8 + [I] + [P],
     # pointers: pk_cum, pk_scode, pk_hist, n_cand, ray_pos, ray_dir,
     # is_back, pair_table, scalars, state (or null), out; ints n, k, gh,
     # gw, pairs_x, n_rounds, chain, s_max; stream.
@@ -117,6 +123,8 @@ def load_library() -> ctypes.CDLL:
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(
                     f"{src} ({rc}):\n{out}" for src, rc, out in failed))
+            so.with_suffix(".ptxas.txt").write_text(
+                "".join(f"// {src}\n{out}" for src, out, _ in done))
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             link = subprocess.run(
                 [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
@@ -134,6 +142,51 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_ZN<len>_GLOBAL__N__..<len>schedule_pack_kernelILb1EEEv...`` ->
+    ``schedule_pack_kernel<1>``: the innermost name and its bool template
+    arguments."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while m := re.match(r"\d+", mangled[i:]):
+        n = int(m.group())
+        name = mangled[i + m.end():i + m.end() + n]
+        i += m.end() + n
+    if bools := re.match(r"I((?:Lb[01]E)+)E", mangled[i:]):
+        name += "<" + ",".join(re.findall(r"Lb([01])E", bools.group(1))) + ">"
+    return name
+
+
+def parse_ptxas(report: str) -> list[dict]:
+    """Per kernel of an ``-Xptxas -v`` report: registers a thread, static
+    shared bytes a block, spill store / load bytes and stack frame bytes
+    a thread."""
+    rows, cur = [], None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = dict(kernel=_kernel_name(m.group(1)), regs=0, smem=0, spill_stores=0,
+                       spill_loads=0, stack=0)
+            rows.append(cur)
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["regs"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                cur["smem"] = int(sm.group(1))
+    return rows
+
+
+def resource_usage() -> list[dict]:
+    """``parse_ptxas`` of the built library's report."""
+    load_library()
+    return parse_ptxas(_library_path().with_suffix(".ptxas.txt").read_text())
 
 
 def check(rc: int, name: str) -> None:

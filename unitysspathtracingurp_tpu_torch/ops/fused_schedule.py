@@ -42,6 +42,42 @@ HOME_PAIRS = 6
 HOME_SLOTS = 4
 
 
+# The shared-memory budget of K1 / K4 / K6 on one H100 SM: its capacity,
+# the most one block may take (dynamic, above 48 KB only after
+# cudaFuncSetAttribute, which the C entry points call), and what the
+# runtime reserves per resident block. The kernels are built with
+# __launch_bounds__(512, 2), at most 64 registers a thread, so registers
+# hold 1,024 threads an SM; shared memory decides how many are resident.
+SMEM_PER_SM = 228 * 1024
+SMEM_PER_BLOCK = 227 * 1024
+SMEM_RESERVED = 1024
+THREADS_PER_SM = 1024
+PACK_BLOCKS = (128, 256, 512)
+
+
+def pack_budget(table_words: int, k: int, n_fields: int,
+                threads: int | None = None) -> tuple[int, int]:
+    """(threads a block, dynamic shared bytes a block) of a K1 / K4 / K6
+    launch. A block holds ``table_words`` 32-bit table words, then its
+    slot staging: ``n_fields`` x ``k`` x threads f32. With ``threads``
+    None, the size in ``PACK_BLOCKS`` that keeps the most threads
+    resident on an SM, the smaller on a tie. Raises when the block cannot
+    fit: there is no other path."""
+    best = None
+    for t in (PACK_BLOCKS if threads is None else (threads,)):
+        smem = (table_words + n_fields * k * t) * 4
+        if smem > SMEM_PER_BLOCK:
+            continue
+        resident = min(SMEM_PER_SM // (smem + SMEM_RESERVED), THREADS_PER_SM // t) * t
+        if best is None or resident > best[0]:
+            best = (resident, t, smem)
+    if best is None:
+        raise RuntimeError(
+            f"schedule_pack: {table_words} table words + {n_fields} x {k} staged slots a "
+            f"thread exceed the {SMEM_PER_BLOCK} B of shared memory a block may use")
+    return best[1], best[2]
+
+
 def f32(x: float) -> float:
     """``x`` rounded to f32, as JAX converts a weak-typed Python float."""
     return float(np.float32(x))
@@ -344,7 +380,9 @@ def _march_params(p):
 def schedule_pack(ray_pos, ray_dir, dither, large_step, alive, is_back,
                   mini_table, scalars, **params):
     """K1 wrapper. CPU tensors: ``schedule_pack_ref``. CUDA tensors: the
-    kernel, or an exception; there is no fallback."""
+    kernel, or an exception; there is no fallback. The kernel reads the
+    camera scalars from the library's one constant copy, which each K1,
+    K4 and K6 launch overwrites: launch them from one stream at a time."""
     if ray_pos.device.type == "cpu":
         return schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive,
                                  is_back, mini_table, scalars, **params)
@@ -363,8 +401,7 @@ def schedule_pack(ray_pos, ray_dir, dither, large_step, alive, is_back,
         t.shape != (n,) for t in ins[2:6]
     ) or ins[7].numel() != 18:
         raise RuntimeError("schedule_pack: bad input shapes")
-    if mini_table.numel() * 4 > 227 * 1024:
-        raise RuntimeError("schedule_pack: minitile table exceeds shared memory")
+    threads, smem = pack_budget(mini_table.numel(), k, 3)
     dev = ray_pos.device
     pk_cum = torch.empty((k, n), dtype=torch.float32, device=dev)
     pk_scode = torch.empty_like(pk_cum)
@@ -374,7 +411,7 @@ def schedule_pack(ray_pos, ray_dir, dither, large_step, alive, is_back,
         *[t.data_ptr() for t in ins],
         pk_cum.data_ptr(), pk_scode.data_ptr(), pk_hist.data_ptr(), n_cand.data_ptr(),
         n, params["gh"], params["gw"], params["minis_x"], mini_table.numel(),
-        *_march_params(params), stream_of(pk_cum),
+        *_march_params(params), threads, smem, stream_of(pk_cum),
     )
     check(rc, "schedule_pack")
     LAUNCHES["schedule_pack"] += 1
@@ -384,7 +421,8 @@ def schedule_pack(ray_pos, ray_dir, dither, large_step, alive, is_back,
 def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, mini_table,
                        home_strips, scalars, *, home_shape, **params):
     """K6 wrapper. CPU tensors: ``schedule_pack_home_ref``. CUDA tensors:
-    the kernel, or an exception; there is no fallback."""
+    the kernel, or an exception; there is no fallback. One stream at a
+    time, as ``schedule_pack``."""
     if ray_pos.device.type == "cpu":
         return schedule_pack_home_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
                                       mini_table, home_strips, scalars, home_shape=home_shape,
@@ -406,8 +444,10 @@ def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, min
         t.shape != (n,) for t in ins[2:6]
     ) or ins[8].numel() != 18:
         raise RuntimeError("schedule_pack_home: bad input shapes")
-    if (mini_table.numel() + HOME_BANDS * HOME_PAIRS * 128) * 4 > 227 * 1024:
-        raise RuntimeError("schedule_pack_home: minitile table exceeds shared memory")
+    # The table and the strip; K6 stores its slots to device memory and
+    # stages none.
+    _, smem = pack_budget(mini_table.numel() + HOME_BANDS * HOME_PAIRS * 128, k, 0,
+                          threads=128)
     dev = ray_pos.device
     pk = [torch.empty((k, n), dtype=torch.float32, device=dev) for _ in range(3)]
     n_cand = torch.empty(n, dtype=torch.int32, device=dev)
@@ -415,7 +455,7 @@ def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, min
     rc = lib.sspt_schedule_pack_home(
         *[t.data_ptr() for t in ins], *[t.data_ptr() for t in pk], n_cand.data_ptr(),
         home_out.data_ptr(), *home_shape, params["gh"], params["gw"], params["minis_x"],
-        mini_table.numel(), *_march_params(params), stream_of(n_cand),
+        mini_table.numel(), *_march_params(params), smem, stream_of(n_cand),
     )
     check(rc, "schedule_pack_home")
     LAUNCHES["schedule_pack_home"] += 1
@@ -425,7 +465,8 @@ def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, min
 def schedule_pack_dual(ray_pos, ray_dir, dither, large_step, alive, combo, search,
                        mini_table, bmax_table, scalars, *, chunks_per_combo, **params):
     """K4 wrapper. CPU tensors: ``schedule_pack_dual_ref``. CUDA tensors:
-    the kernel, or an exception; there is no fallback."""
+    the kernel, or an exception; there is no fallback. One stream at a
+    time, as ``schedule_pack``."""
     if ray_pos.device.type == "cpu":
         return schedule_pack_dual_ref(
             ray_pos, ray_dir, dither, large_step, alive, combo, search, mini_table,
@@ -449,13 +490,14 @@ def schedule_pack_dual(ray_pos, ray_dir, dither, large_step, alive, combo, searc
     combo_words = chunks_per_combo * 128
     if mini_table.numel() % combo_words:
         raise RuntimeError("schedule_pack_dual: table not a whole number of combos")
+    threads, smem = pack_budget(0, k, 4)
     dev = ray_pos.device
     pk = [torch.empty((k, n), dtype=torch.float32, device=dev) for _ in range(4)]
     n_cand = torch.empty(n, dtype=torch.int32, device=dev)
     rc = lib.sspt_schedule_pack_dual(
         *[t.data_ptr() for t in ins], *[t.data_ptr() for t in pk], n_cand.data_ptr(),
         n, params["gh"], params["gw"], params["minis_x"], mini_table.numel(), combo_words,
-        *_march_params(params), stream_of(n_cand),
+        *_march_params(params), threads, smem, stream_of(n_cand),
     )
     check(rc, "schedule_pack_dual")
     LAUNCHES["schedule_pack_dual"] += 1
