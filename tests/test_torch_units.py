@@ -13,6 +13,7 @@ Tolerances, and why:
 """
 
 import dataclasses
+import inspect
 import os
 import re
 from pathlib import Path
@@ -27,6 +28,7 @@ from unitysspathtracingurp_tpu import config as jconfig
 from unitysspathtracingurp_tpu import gbuffer as jgbuffer
 from unitysspathtracingurp_tpu import gbuffer_packed as jpacked
 from unitysspathtracingurp_tpu.models import fixtures as jfixtures
+from unitysspathtracingurp_tpu.models.renderer import Renderer as JRenderer
 from unitysspathtracingurp_tpu.models import scene as jscene
 from unitysspathtracingurp_tpu.ops import accumulate as jaccum
 from unitysspathtracingurp_tpu.ops import brdf as jbrdf
@@ -137,6 +139,32 @@ def test_unported_knobs_raise(cfg_kw, settings_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(tconfig.PTSettings(**settings_kw), 16, 16, cfg=tconfig.PTConfig(**cfg_kw),
                  device="cpu")
+
+
+
+@pytest.mark.parametrize("kw,raises,match", [
+    ({}, None, None),
+    ({"hdr_64bit": False}, NotImplementedError, "item 3b"),
+    ({"kernel": "xla"}, NotImplementedError, "item 7"),
+    ({"kernel": "bogus"}, ValueError, "unknown kernel"),
+])
+def test_renderer_takes_the_jax_keywords(kw, raises, match):
+    """The JAX Renderer's arguments in its order and with its defaults,
+    then ``device``; the unported values raise naming their items."""
+    jax_params = list(inspect.signature(JRenderer.__init__).parameters.values())
+    port_params = list(inspect.signature(Renderer.__init__).parameters.values())
+    assert [p.name for p in port_params] == [p.name for p in jax_params] + ["device"]
+    for jp, tp in zip(jax_params[6:], port_params[6:]):
+        assert tp.default == jp.default, tp.name
+    s = tconfig.PTSettings(maximum_depth=1)
+    if raises is None:
+        r = Renderer(s, 16, 16, tconfig.PTConfig(), None, np.radians(45.0), True, None, None,
+                     "hiz", device="cpu")
+        assert r.fov_y == np.radians(45.0)
+        assert Renderer(s, 16, 16, device="cpu").fov_y == np.radians(60.0)
+    else:
+        with pytest.raises(raises, match=match):
+            Renderer(s, 16, 16, device="cpu", **kw)
 
 
 # ---------------------------------------------------------------- camera

@@ -7,9 +7,10 @@ invalidation on camera or scene-key change (cs:772-823), pause, the
 converged skip (cs:436-438), the depth-tiles cache, and save / load.
 
 The real-time modes (ROADMAP Queue 1 item 10), render-scale upscaling
-(item 13) and multi-device sharding (item 14) raise NotImplementedError;
-the 11-bit HDR target (``hdr_64bit=False``) is item 3b, so accumulation
-is f32.
+(item 13), multi-device sharding (item 14), the 11-bit HDR target
+(``hdr_64bit=False``, item 3b) and the parity march (``kernel="xla"``,
+item 7) raise NotImplementedError, so accumulation is f32 and every
+frame runs the hiz march.
 """
 
 from __future__ import annotations
@@ -41,11 +42,26 @@ class Renderer:
         width: int,
         cfg: PTConfig = PTConfig(),
         probes: Optional[ProbeSet] = None,
+        fov_y: float = float(np.radians(60.0)),
+        hdr_64bit: bool = True,
         display_size: Optional[tuple] = None,
         mesh=None,
+        kernel: str = "auto",
         device="cuda",
     ):
+        """The JAX ``Renderer``'s arguments in its order, then ``device``.
+        ``fov_y`` is kept for the real-time modes (item 10). ``kernel``:
+        "auto" and "hiz" run the hiz march; "xla" (the parity march) is
+        not ported."""
         settings.validate()
+        if not hdr_64bit:
+            raise NotImplementedError(
+                "hdr_64bit=False (bf16 accumulation): ROADMAP Queue 1 item 3b"
+            )
+        if kernel == "xla":
+            raise NotImplementedError("kernel='xla' (the parity march): ROADMAP Queue 1 item 7")
+        if kernel not in ("auto", "hiz"):
+            raise ValueError(f"unknown kernel {kernel!r} (auto|hiz|xla)")
         if settings.denoiser not in (DenoiserType.NONE, DenoiserType.OFFLINE):
             raise NotImplementedError(
                 f"{settings.denoiser}: the real-time modes are ROADMAP Queue 1 item 10"
@@ -56,6 +72,7 @@ class Renderer:
             raise NotImplementedError("mesh (sharded frames): ROADMAP Queue 1 item 14")
         self.settings = settings
         self.cfg = cfg
+        self.fov_y = fov_y
         self.variants = settings.variants().check_supported()
         # ThicknessMode value: 2 (DepthNormals) lets back normals feed the
         # inside-object and back-hit normal flips.
