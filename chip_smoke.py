@@ -57,6 +57,10 @@ TIMED_FRAMES = 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 STEP_OPS = 60  # f32 operations of one march step or one resolve link
+SPIN_MIN_S = 0.02  # the least device spin ahead of a timed run
+# Clock cycles a second of torch.cuda._sleep's spin: the H100 SXM's
+# highest SM clock (1.98 GHz), so the spin lasts at least as long as asked.
+SPIN_CYCLES_PER_S = 1.98e9
 KERNELS = {
     "schedule_pack": dict(
         source="unitysspathtracingurp_tpu_torch/csrc/schedule_pack.cu",
@@ -123,11 +127,20 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` runs (CUDA events).
+
+    A device spin queued ahead of the start event, at least 20 ms and at
+    least 1.5 x ``reps`` x the host time of the warm-up call, keeps the
+    card busy while the host queues the runs, so the events time the
+    device alone and not the host's launch gaps."""
     import torch
 
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    spin_s = max(SPIN_MIN_S, 1.5 * reps * host_s)
+    torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
