@@ -296,6 +296,8 @@ def check_kernels(h, w, dev, timing: bool):
             n * 24 * STEP_OPS))
         out["resolve_rounds"].update(r1_bound(n, float(links[0].sum()),
                                               tiles.pair_table.numel()))
+        print(f"phase 3 R1 {w}x{h}: {float(links[0].sum()) / n:.3f} links a lane, warp "
+              f"efficiency {warp_efficiency(links[0]):.4f}")
         out["schedule_pack"]["ms"] = cuda_ms(lambda: fs.schedule_pack(*k1_args, **k1_kw), 20)
         out["schedule_pack"]["plain_ms"] = cuda_ms(
             lambda: fs.schedule_pack_ref(*k1_args, **k1_kw), 3)
@@ -466,13 +468,10 @@ def check_dual_kernels(h, w, dev, timing: bool):
             out["schedule_pack_dual"].update(bound(
                 n * (12 + 12 + 4 + 4 + 1 + 4 + 1) + n * (16 * 16 + 4) + tab,
                 n * 24 * STEP_OPS))
-            # Per link: the four slot fields; the tile table is L2-resident,
-            # so at most the slices of the combos in use come from memory, once.
-            table = min(n_links * 4, tiles.tiles_per_combo * 128 * 4
-                        * combo.unique().numel())
-            out["resolve_rounds_dual"].update(bound(
-                n * (12 + 12 + 1 + 4 + 4 + 1) + n_links * 16 + table + n * 15 * 4,
-                n_links * STEP_OPS))
+            out["resolve_rounds_dual"].update(r1_dual_bound(
+                n, n_links, tiles.tiles_per_combo * 128, combo.unique().numel()))
+            print(f"phase 3 R1 dual {w}x{h} inside 0: {n_links / n:.3f} links a lane, warp "
+                  f"efficiency {warp_efficiency(links[0]):.4f}")
             out["schedule_pack_dual"]["ms"] = cuda_ms(
                 lambda: fs.schedule_pack_dual(*k4_args, **k4_kw), 20)
             out["schedule_pack_dual"]["plain_ms"] = cuda_ms(
@@ -678,9 +677,10 @@ def check_home_march(dev):
     gate(agree >= 0.999 and dd < 1e-4 and uv >= 0.999, "home march equals the non-home march")
 
 
-def first_calls(dev, path: str, name: str):
-    """(args, kwargs) of the first call of ``pathtrace_hiz.<name>`` (its
-    bounce 0) in one 1080p frame of ``path``, on the kernels."""
+def frame_calls(dev, path: str, name: str):
+    """(args, kwargs) of every call of ``pathtrace_hiz.<name>`` in one
+    1080p frame of ``path`` (one a bounce, in order), on the kernels, and
+    the frame's tiles."""
     import torch
 
     from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
@@ -689,21 +689,22 @@ def first_calls(dev, path: str, name: str):
     s, cfg, bde, glass = path_config(path)
     gb, cam = boxscene(H_FULL, W_FULL, dev, glass=glass)
     probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
-    seen = []
+    tiles = ph.build_tiles_for(gb, cam, s.variants())
+    calls = []
     real = getattr(ph, name)
 
     def spy(*a, **kw):
-        if not seen:
-            seen.append((a, kw))
+        calls.append((a, kw))
         return real(*a, **kw)
 
     setattr(ph, name, spy)
     try:
-        ph.trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, back_depth_enabled=bde)
+        ph.trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, tiles=tiles,
+                           back_depth_enabled=bde)
         torch.cuda.synchronize()
     finally:
         setattr(ph, name, real)
-    return seen[0]
+    return calls, tiles
 
 
 def r1_bound(n: int, n_links: float, table_words: int) -> dict:
@@ -713,6 +714,61 @@ def r1_bound(n: int, n_links: float, table_words: int) -> dict:
     table = min(n_links * 4, table_words * 4)
     return bound(n * (12 + 12 + 1 + 4) + n_links * 12 + table + n * 11 * 4,
                  n_links * STEP_OPS)
+
+
+def r1_dual_bound(n: int, n_links: float, combo_words: int, n_combos: int) -> dict:
+    """R1-dual's bound: per lane its ray state, slot count, combo and
+    search flag and the 15 f32 rows out; per link the four slot fields;
+    the L2-resident tile table's slices of the combos in use read from
+    memory at most once."""
+    table = min(n_links * 4, combo_words * 4 * n_combos)
+    return bound(n * (12 + 12 + 1 + 4 + 4 + 1) + n_links * 16 + table + n * 15 * 4,
+                 n_links * STEP_OPS)
+
+
+def warp_efficiency(links) -> float:
+    """Share of issued link slots that do work: sum of lane links over 32
+    x the sum of each warp's most (lanes in warps of 32 consecutive, as
+    R1 maps them)."""
+    import torch
+
+    pad = (-links.numel()) % 32
+    per_warp = torch.cat([links, links.new_zeros(pad)]).view(-1, 32)
+    return float(per_warp.sum()) / max(32.0 * float(per_warp.amax(1).sum()), 1.0)
+
+
+def r1_frame_report(dev, card, path: str) -> list:
+    """R1 (R1-dual on the dual path) on its own inputs in every bounce of
+    a 1080p frame of ``path``: ms, bound, links a lane and warp
+    efficiency. Returns one dict a bounce."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+
+    dual = path == "dual"
+    name = "resolve_rounds_dual" if dual else "resolve_rounds"
+    calls, _ = frame_calls(dev, path, name)
+    rows = []
+    for b, (a, kw) in enumerate(calls):
+        links = []
+        getattr(ph, name + "_ref")(*a, **kw, links_out=links)
+        n = a[0].shape[1]
+        n_links = float(links[0].sum())
+        b_ = (r1_dual_bound(n, n_links, kw["tiles_per_combo"] * 128, a[8].unique().numel())
+              if dual else r1_bound(n, n_links, a[7].numel()))
+        ms = cuda_ms(lambda: getattr(ph, name)(*a, **kw), 20)
+        row = dict(bounce=b, lanes=n, state_in=kw.get("state") is not None,
+                   links_per_lane=n_links / max(n, 1), warp_efficiency=warp_efficiency(links[0]),
+                   ms=ms, **b_)
+        rows.append(row)
+        print(f"phase 6 {'R1-dual' if dual else 'R1'} on the {path} frame's bounce {b} "
+              f"({n} lanes, {kw['n_rounds']} rounds"
+              f"{', from the state in' if row['state_in'] else ''}): {ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms (share {row['bound_ms'] / ms:.3f}), "
+              f"{row['links_per_lane']:.3f} links a lane, warp efficiency "
+              f"{row['warp_efficiency']:.4f} [{card}]")
+    torch.cuda.synchronize()
+    return rows
 
 
 def diagnostic_report(dev, card):
@@ -807,21 +863,18 @@ def diagnostic_report(dev, card):
         **k1_kw), 20)
     print(f"phase 6 bounce-0 rays of the frame: K1 {k1_ms:.4f} ms, K6 {k6_ms:.4f} ms [{card}]")
 
-    # R1 on the headline frame's own bounce-0 inputs, K4 on the dual
-    # frame's, each against its bound at those inputs.
-    r1_a, r1_kw = first_calls(dev, "headline", "resolve_rounds")
-    links = []
-    ph.resolve_rounds_ref(*r1_a, **r1_kw, links_out=links)
-    r1_b = r1_bound(r1_a[0].shape[1], float(links[0].sum()), r1_a[7].numel())
-    r1_ms = cuda_ms(lambda: ph.resolve_rounds(*r1_a, **r1_kw), 20)
-    k4_a, k4_kw = first_calls(dev, "dual", "schedule_pack_dual")
+    # R1 on every bounce of the headline and home frames, R1-dual on
+    # every bounce of the dual frame, K4 on the dual frame's bounce 0,
+    # each on its own inputs against its bound there.
+    for path in ("headline", "home", "dual"):
+        r1_frame_report(dev, card, path)
+    k4_a, k4_kw = frame_calls(dev, "dual", "schedule_pack_dual")[0][0]
     n4 = k4_a[0].shape[0]
     k4_b = bound(n4 * (12 + 12 + 4 + 4 + 1 + 4 + 1) + n4 * (16 * 16 + 4)
                  + (k4_a[7].numel() + k4_a[8].numel()) * 4, n4 * 24 * STEP_OPS)
     k4_ms = cuda_ms(lambda: fs.schedule_pack_dual(*k4_a, **k4_kw), 20)
-    print(f"phase 6 bounce-0 rays of the frames: R1 (headline, {r1_a[0].shape[1]} lanes, "
-          f"{r1_kw['n_rounds']} rounds) {r1_ms:.4f} ms, bound {r1_b['bound_ms']:.4f} ms; K4 "
-          f"(dual, {n4} lanes) {k4_ms:.4f} ms, bound {k4_b['bound_ms']:.4f} ms [{card}]")
+    print(f"phase 6 bounce-0 rays of the dual frame: K4 ({n4} lanes) {k4_ms:.4f} ms, bound "
+          f"{k4_b['bound_ms']:.4f} ms [{card}]")
 
     # The A/B: home x n_rounds, with the 0.4 cap and without, against the
     # non-home headline (4 rounds) and against the non-home frame at an

@@ -60,7 +60,6 @@ from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph  # noqa: E40
 from unitysspathtracingurp_tpu_torch.ops.depth_tiles import (  # noqa: E402
     build_depth_tiles, build_home_strips,
 )
-from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "pack_ablation"
 
@@ -295,8 +294,8 @@ def use(lib, copy: Copy, forced: int | None, dual_table_words: int = 0):
 
 
 def test_rays(dev, glass: bool):
-    """The phase-3 test inputs of chip_smoke.py at 1080p: K1 (and K6's
-    extra arguments), or K4 with insideObject 0."""
+    """The phase-3 test inputs of chip_smoke.py at 1080p, (args, kwargs,
+    tiles): K1 (and K6's extra arguments), or K4 with insideObject 0."""
     h, w, n = cs.H_FULL, cs.W_FULL, cs.H_FULL * cs.W_FULL
     gb, cam = cs.boxscene(h, w, dev, glass=glass)
     x = cs.march_inputs(gb, cam)
@@ -311,31 +310,9 @@ def test_rays(dev, glass: bool):
     if glass:
         combo = torch.zeros(n, dtype=torch.int32, device=dev)
         return ((*lane, combo, is_back, tiles.mini_table, tiles.bmax_table,
-                 fs.schedule_scalars(cam)), dict(kw, chunks_per_combo=tiles.chunks_per_combo))
+                 fs.schedule_scalars(cam)), dict(kw, chunks_per_combo=tiles.chunks_per_combo),
+                tiles)
     return (*lane, is_back, tiles.mini_table, fs.schedule_scalars(cam)), kw, tiles
-
-
-def frame_calls(dev, path: str, name: str):
-    """(args, kwargs) of every call of ``pathtrace_hiz.<name>`` in one 1080p
-    frame of ``path``, and the frame's tiles (plain versions: the inputs
-    do not depend on the kernels, which equal them bit for bit)."""
-    s, cfg, bde, glass = cs.path_config(path)
-    gb, cam = cs.boxscene(cs.H_FULL, cs.W_FULL, dev, glass=glass)
-    probes = ProbeSet(probe0=constant_probe(cs.PROBE, device=dev))
-    tiles = ph.build_tiles_for(gb, cam, s.variants())
-    calls = []
-    with cs.plain_kernels():
-        real = getattr(ph, name)
-
-        def spy(*a, **kw):
-            calls.append((a, kw))
-            return real(*a, **kw)
-
-        setattr(ph, name, spy)
-        ph.trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, tiles=tiles,
-                           back_depth_enabled=bde)
-        torch.cuda.synchronize()
-    return calls, tiles
 
 
 def bound_ms(kernel: str, n: int, k: int, table_bytes: int) -> float:
@@ -433,7 +410,7 @@ def main() -> int:
     run_set("test rays 1080p", "K6", fs.schedule_pack_home, fs.schedule_pack_home_ref, k6_args,
             k6_kw, libs, results, table_bytes=tb + strips.numel() * 4)
 
-    calls, tiles = frame_calls(dev, "headline", "schedule_pack")
+    calls, tiles = cs.frame_calls(dev, "headline", "schedule_pack")
     tb = tiles.mini_table.numel() * 4
     for b, (a, kwc) in enumerate(calls):
         run_set(f"headline frame bounce {b} rays", "K1", fs.schedule_pack,
@@ -445,12 +422,12 @@ def main() -> int:
             dict(kwc, home_shape=(cs.H_FULL, cs.W_FULL)), libs, results,
             table_bytes=tb + strips.numel() * 4)
 
-    args, kw = test_rays(dev, glass=True)
+    args, kw, _ = test_rays(dev, glass=True)
     cw = kw["chunks_per_combo"] * 128
     tb = (args[7].numel() + args[8].numel()) * 4
     run_set("test rays 1080p inside 0", "K4", fs.schedule_pack_dual, fs.schedule_pack_dual_ref,
             args, kw, libs, results, dual_table_words=2 * cw, table_bytes=tb)
-    calls, tiles = frame_calls(dev, "dual", "schedule_pack_dual")
+    calls, tiles = cs.frame_calls(dev, "dual", "schedule_pack_dual")
     for b, (a, kwc) in enumerate(calls):
         run_set(f"dual frame bounce {b} rays", "K4", fs.schedule_pack_dual,
                 fs.schedule_pack_dual_ref, a, kwc, libs, results,
