@@ -270,9 +270,8 @@ def check_kernels(h, w, dev, timing: bool):
     r1_args = (*ref[:4], k1_args[0], k1_args[1], is_back, tiles.pair_table, scalars)
     r1_kw = dict(gh=h, gw=w, pairs_x=tiles.pairs_x,
                  n_rounds=ph.default_rounds(h, w), chain=cfg.hiz_chain, s_max=24)
-    links = []
     res_k = ph.resolve_rounds(*r1_args, **r1_kw)
-    res_r = ph.resolve_rounds_ref(*r1_args, **r1_kw, links_out=links)
+    res_r, links, r1_b = r1_reference(r1_args, r1_kw)
     torch.cuda.synchronize()
     march = [
         ph.finalize(r.reshape(11, h, w), x["origin"], x["d"], is_back.reshape(h, w),
@@ -294,10 +293,9 @@ def check_kernels(h, w, dev, timing: bool):
         out["schedule_pack"].update(bound(
             n * (12 + 12 + 4 + 4 + 1 + 1) + n * (16 * 12 + 4) + tiles.mini_table.numel() * 4,
             n * 24 * STEP_OPS))
-        out["resolve_rounds"].update(r1_bound(n, float(links[0].sum()),
-                                              tiles.pair_table.numel()))
-        print(f"phase 3 R1 {w}x{h}: {float(links[0].sum()) / n:.3f} links a lane, warp "
-              f"efficiency {warp_efficiency(links[0]):.4f}")
+        out["resolve_rounds"].update(r1_b)
+        print(f"phase 3 R1 {w}x{h}: {float(links.sum()) / n:.3f} links a lane, warp "
+              f"efficiency {warp_efficiency(links):.4f}")
         out["schedule_pack"]["ms"] = cuda_ms(lambda: fs.schedule_pack(*k1_args, **k1_kw), 20)
         out["schedule_pack"]["plain_ms"] = cuda_ms(
             lambda: fs.schedule_pack_ref(*k1_args, **k1_kw), 3)
@@ -437,9 +435,8 @@ def check_dual_kernels(h, w, dev, timing: bool):
                    tiles.tile_table, scalars)
         r1_kw = dict(gh=h, gw=w, tiles_x=tiles.tiles_x, tiles_per_combo=tiles.tiles_per_combo,
                      n_rounds=ph.default_rounds(h, w), chain=4, s_max=24, has_back=True)
-        links = []
         res_k = ph.resolve_rounds_dual(*r1_args, **r1_kw)
-        res_r = ph.resolve_rounds_dual_ref(*r1_args, **r1_kw, links_out=links)
+        res_r, links, r1_b = r1_reference(r1_args, r1_kw, dual=True)
         torch.cuda.synchronize()
         r1_equal = torch.equal(res_k, res_r)
         r1_err = (res_k - res_r).abs().max().item()
@@ -463,15 +460,13 @@ def check_dual_kernels(h, w, dev, timing: bool):
         out["resolve_rounds_dual"]["max_abs_err"] = max(
             out["resolve_rounds_dual"]["max_abs_err"], r1_err)
         if timing and inside == 0:
-            n_links = float(links[0].sum())
             tab = (tiles.mini_table.numel() + tiles.bmax_table.numel()) * 4
             out["schedule_pack_dual"].update(bound(
                 n * (12 + 12 + 4 + 4 + 1 + 4 + 1) + n * (16 * 16 + 4) + tab,
                 n * 24 * STEP_OPS))
-            out["resolve_rounds_dual"].update(r1_dual_bound(
-                n, n_links, tiles.tiles_per_combo * 128, combo.unique().numel()))
-            print(f"phase 3 R1 dual {w}x{h} inside 0: {n_links / n:.3f} links a lane, warp "
-                  f"efficiency {warp_efficiency(links[0]):.4f}")
+            out["resolve_rounds_dual"].update(r1_b)
+            print(f"phase 3 R1 dual {w}x{h} inside 0: {float(links.sum()) / n:.3f} links a "
+                  f"lane, warp efficiency {warp_efficiency(links):.4f}")
             out["schedule_pack_dual"]["ms"] = cuda_ms(
                 lambda: fs.schedule_pack_dual(*k4_args, **k4_kw), 20)
             out["schedule_pack_dual"]["plain_ms"] = cuda_ms(
@@ -707,23 +702,44 @@ def frame_calls(dev, path: str, name: str):
     return calls, tiles
 
 
-def r1_bound(n: int, n_links: float, table_words: int) -> dict:
-    """R1's bound: per lane its ray state, slot counts and the 11 f32
-    rows out; per link the three slot fields; the L2-resident pair table
-    read from memory at most once."""
-    table = min(n_links * 4, table_words * 4)
-    return bound(n * (12 + 12 + 1 + 4) + n_links * 12 + table + n * 11 * 4,
-                 n_links * STEP_OPS)
+def r1_bound(lanes: int, active: float, links: float, hits: float, table_bytes: float,
+             dual: bool = False, state_in: bool = False) -> dict:
+    """R1's bound (R1-dual's with ``dual``) on this run's data. Every lane
+    reads its slot count and writes its rows (and ptr in the state-in
+    form, which reads every lane's ptr, hit flag and prev rows, and the
+    other rows of every lane that does not hit); a lane with links to
+    test reads its ray and back flag (dual: combo and search flag); a
+    tested link reads cum and scode (dual: step too), a hit pk_hist; the
+    L2-resident table comes from memory at most once (``table_bytes``:
+    the slices in use)."""
+    rows = 15 if dual else 11
+    kept = 3 if dual else 2  # prev_diff, prev_sidx (, prev_sd)
+    per_lane = 4 + (rows + state_in) * 4 + (2 + kept) * 4 * state_in
+    passed = (lanes - hits) * (rows - kept - 1) * 4 * state_in
+    ray = active * (12 + 12 + 1 + (5 if dual else 0))
+    slots = links * (12 if dual else 8) + hits * 4
+    return bound(lanes * per_lane + passed + ray + slots + min(links * 4, table_bytes),
+                 links * STEP_OPS)
 
 
-def r1_dual_bound(n: int, n_links: float, combo_words: int, n_combos: int) -> dict:
-    """R1-dual's bound: per lane its ray state, slot count, combo and
-    search flag and the 15 f32 rows out; per link the four slot fields;
-    the L2-resident tile table's slices of the combos in use read from
-    memory at most once."""
-    table = min(n_links * 4, combo_words * 4 * n_combos)
-    return bound(n * (12 + 12 + 1 + 4 + 4 + 1) + n_links * 16 + table + n * 15 * 4,
-                 n_links * STEP_OPS)
+def r1_reference(args, kw, dual: bool = False):
+    """R1's (R1-dual's) plain version on ``args``: its output, each
+    lane's count of links tested and the kernel's bound on this run's
+    data."""
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+
+    links = []
+    ref = (ph.resolve_rounds_dual_ref if dual else ph.resolve_rounds_ref)(
+        *args, **kw, links_out=links)
+    links = links[0]
+    state = kw.get("state")
+    hits = float((ref[0 if state is None else 1] > 0.5).sum())
+    if state is not None:
+        hits -= float((state[1] > 0.5).sum())
+    table = (kw["tiles_per_combo"] * 128 * 4 * args[8].unique().numel() if dual
+             else args[7].numel() * 4)
+    return ref, links, r1_bound(args[0].shape[1], float((links > 0).sum()), float(links.sum()),
+                                hits, table, dual, state is not None)
 
 
 def warp_efficiency(links) -> float:
@@ -750,16 +766,12 @@ def r1_frame_report(dev, card, path: str) -> list:
     calls, _ = frame_calls(dev, path, name)
     rows = []
     for b, (a, kw) in enumerate(calls):
-        links = []
-        getattr(ph, name + "_ref")(*a, **kw, links_out=links)
+        _, links, b_ = r1_reference(a, kw, dual)
         n = a[0].shape[1]
-        n_links = float(links[0].sum())
-        b_ = (r1_dual_bound(n, n_links, kw["tiles_per_combo"] * 128, a[8].unique().numel())
-              if dual else r1_bound(n, n_links, a[7].numel()))
         ms = cuda_ms(lambda: getattr(ph, name)(*a, **kw), 20)
         row = dict(bounce=b, lanes=n, state_in=kw.get("state") is not None,
-                   links_per_lane=n_links / max(n, 1), warp_efficiency=warp_efficiency(links[0]),
-                   ms=ms, **b_)
+                   links_per_lane=float(links.sum()) / max(n, 1),
+                   warp_efficiency=warp_efficiency(links), ms=ms, **b_)
         rows.append(row)
         print(f"phase 6 {'R1-dual' if dual else 'R1'} on the {path} frame's bounce {b} "
               f"({n} lanes, {kw['n_rounds']} rounds"

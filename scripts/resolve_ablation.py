@@ -22,23 +22,27 @@ copies' outputs against the plain version bit for bit, on:
   bounce of a 1080p dual frame, caught on the way through
   ``trace_frame_hiz``.
 
-The split. The copies named ``fixed*`` run each lane's links in one flat
-loop over the slots [ptr, n_cand), and the script passes ptr plus the
+The split. The copies named ``fixed*`` drop the round structure: a lane
+tests every link in [ptr, n_cand) and the script passes ptr plus the
 number of links the plain version tested (``links_out``) as n_cand, so
 every such copy does the same work on every lane. ``fixed`` keeps every
-link's work and is exact; (a) ``fixed-slots`` makes the slot fields from
-the lane and link index instead of reading them; (b) ``fixed-table``
-takes the table word from a register; (c) ``fixed-arith`` decodes the
-codes with bit masks, replaces the IEEE divides with one approximate
-reciprocal and drops the search budget; (e) ``fixed-hoist2`` /
-``fixed-hoist4`` issue the slot loads, then the table loads, of 2 / 4
-links before testing any (exact). Each term is ``fixed`` minus its copy;
-the round structure's own cost is the unpatched kernel minus ``fixed``.
-(d), SIMT divergence, is the warp efficiency of the plain version's link
-counts (``chip_smoke.warp_efficiency``). With ``--parent DIR`` (an
-unpacked earlier tree, e.g. ``git archive`` of the parent commit) that
-tree's own ``resolve_rounds.cu`` is built and timed beside the copies, as
-"parent". Writes every number to ``--out`` (default
+link's work and is exact; (a) ``fixed-slots`` makes the slot fields
+from the lane and link index instead of reading them; (b)
+``fixed-table`` takes the table word from a register; (c)
+``fixed-arith`` replaces the IEEE divides with one approximate
+reciprocal and drops the search budget. Each term is ``fixed`` minus
+its copy; the round structure's own cost is the unpatched kernel minus
+``fixed``. (d), SIMT divergence, is the warp efficiency of the plain
+version's link counts (``chip_smoke.warp_efficiency``). The design's
+choices, each exact: ``float-decode`` and ``eager-budget`` put back the
+earlier f32 decode and the budget on every link; ``plain-loads`` reads
+the slots and the table without ``__ldg``; ``prefetch`` loads the next
+link's slot fields while the current one is tested; ``t64`` / ``t256``
+and ``min*`` change the block size and the blocks an SM that
+``__launch_bounds__`` asks for (``free-regs``: none). With ``--parent
+DIR`` (an unpacked earlier tree, e.g. ``git archive`` of the parent
+commit) that tree's own ``resolve_rounds.cu`` is built and timed beside
+the copies, as "parent". Writes every number to ``--out`` (default
 ``build/resolve_ablation/resolve_ablation.json``).
 Imports nothing of JAX.
 """
@@ -71,242 +75,158 @@ from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_home_strips  #
 OUT_DIR = ROOT / "build" / "resolve_ablation"
 ENTRIES = ("sspt_resolve_rounds", "sspt_resolve_rounds_dual")
 
-# The rounds of resolve_rounds.cu, from its first line to its last.
-ROUNDS_FROM = "  for (int r = 0; r < n_rounds; ++r) {\n"
-ROUNDS_TO = "    ptr += adv;\n  }\n"
+# A copy is a list of replacements (old, new, times old occurs).
 
-# The fixed-count loop that replaces them: G links a group, their slot
-# loads (@SLOTS@), then their projections and table loads (@TABLE@),
-# then the hit rule link by link.
-FIXED = """  {
-#define R1_DIV(a, b) ((a) / (b))
-#define R1_RCP(x) (1.0f / (x))
-#define R1_HALVINGS(d, th) ceilf(log2f(fmaxf(-(d) / fmaxf((th), 1e-6f), 1.0f)))
-@MACROS@
-    constexpr int G = @G@;
-#pragma unroll 1
-    for (int s0 = ptr; s0 < nc && !hit; s0 += G) {
-      float l_cd[G], l_sc[G], l_hs[G], l_st[G];
-#pragma unroll
-      for (int q = 0; q < G; ++q) {
-        const int s = min(s0 + q, nc - 1);
-        const size_t o = static_cast<size_t>(s) * n + lane;
-@SLOTS@
-      }
-      float l_hitd[G];
-      int l_ix[G], l_iy[G];
-      uint32_t l_w[G];
-#pragma unroll
-      for (int q = 0; q < G; ++q) {
-        const float cd = l_cd[q];
-        const float px = ox + cd * dx, py = oy + cd * dy, pz = oz + cd * dz;
-        const float cx = px * m[0] + py * m[1] + pz * m[2] + m[3];
-        const float cy = px * m[4] + py * m[5] + pz * m[6] + m[7];
-        const float cz = px * m[8] + py * m[9] + pz * m[10] + m[11];
-        float w = px * m[12] + py * m[13] + pz * m[14] + m[15];
-        if (fabsf(w) < 1e-12f) w = 1e-12f;
-        const float u = R1_DIV(cx, w) * 0.5f + 0.5f;
-        const float v = R1_DIV(cy, w) * 0.5f + 0.5f;
-        l_hitd[q] = R1_RCP(R1_DIV(cz, w) * zz + zw);
-        const int ix = pixel_index(u, gw);
-        const int iy = pixel_index(v, gh);
-        l_ix[q] = ix;
-        l_iy[q] = iy;
-@TABLE@
-      }
-#pragma unroll
-      for (int q = 0; q < G; ++q) {
-        if (s0 + q >= nc) break;
-        const float cd = l_cd[q], scode = l_sc[q], hist = l_hs[q], hitd = l_hitd[q];
-        const int ix = l_ix[q], iy = l_iy[q];
-        const uint32_t word = l_w[q];
-@DECODE@
-        float d, sd = 0.0f;
-        bool hit_now, base_hit = false, back_hit_now = false;
-        if (DUAL) {
-          const float step = l_st[q] * 0.025f;
-          const float t_raw = half_bits_to_float(word);
-          const float b_raw = half_bits_to_float(word >> 16);
-          const float scene = R1_RCP(t_raw * zz + zw);
-          const bool is_sky = t_raw == 0.0f;
-          const float scene_back = R1_RCP(b_raw * zz + zw);
-          const bool back_ok = (b_raw != 0.0f) && (scene_back >= scene);
-          d = scene - hitd;
-          const bool is_bs = backray && (hitd > scene_back) && back_ok;
-          sd = is_bs ? (back_ok ? hitd - scene_back : d - th) : d;
-          const bool hit_backed = (d <= 0.0f) && (hitd <= fmaxf(scene_back, scene + step));
-          const bool hit_plain = (d <= 0.0f) && (d >= -th);
-          base_hit = back_ok ? hit_backed : hit_plain;
-          const bool budget_ok =
-              static_cast<float>(s_idx + 1) + R1_HALVINGS(d, th) <= static_cast<float>(s_max);
-          const bool search_ok =
-              searchlane || (dual.has_back && !backray && back_ok && (hitd <= scene_back));
-          hit_now = !is_sky && (base_hit || (search_ok && (d <= 0.0f) && budget_ok));
-          back_hit_now = hit_now && back_ok && (hitd > scene_back) && (sd >= 0.0f);
-        } else {
-          const float d_raw = half_bits_to_float(((ix >> 4) & 1) ? (word >> 16) : word);
-          const float scene = R1_RCP(d_raw * zz + zw);
-          const bool is_sky = d_raw == 0.0f;
-          d = scene - hitd;
-          const bool budget_ok =
-              static_cast<float>(s_idx + 1) + R1_HALVINGS(d, th) <= static_cast<float>(s_max);
-          const bool in_window = (d >= -th) || (backray && budget_ok);
-          hit_now = (d <= 0.0f) && in_window && !is_sky;
-        }
-        if (hit_now) {
-          hit = true;
-          h_cum = cd;
-          h_diff = d;
-          h_th = th;
-          h_hitd = hitd;
-          h_lcum = lcum;
-          h_lhd = lhd;
-          h_prev = p_idx;
-          h_ixy = iy * gw + ix;
-          h_sd = sd;
-          h_back = back_hit_now;
-          h_search = !base_hit;
-          break;
-        }
-        prev_diff = d;
-        prev_sidx = s_idx;
-        prev_sd = sd;
-        ++ptr;
-      }
-    }
-#undef R1_DIV
-#undef R1_RCP
-#undef R1_HALVINGS
-  }
-"""
-SLOTS = """        l_cd[q] = pk_cum[o];
-        l_sc[q] = pk_scode[o];
-        l_hs[q] = pk_hist[o];
-        l_st[q] = DUAL ? dual.pk_step[o] : 0.0f;
-"""
-SLOTS_MADE = """        l_cd[q] = 0.25f * static_cast<float>(s + 1);
-        l_sc[q] = static_cast<float>(s + 65 * (s + 1) + 8192 * (lane & 63));
-        l_hs[q] = static_cast<float>(4096 * (s + 1) + (lane & 4095));
-        l_st[q] = static_cast<float>(s + 1);
-"""
-TABLE = """        const int txi = ix / 16;
-        const int pair = DUAL ? (iy / 8) * pairs_x + txi : (iy / 8) * pairs_x + txi / 2;
-        const int texel = (iy % 8) * 16 + ix % 16;
-        l_w[q] = DUAL ? table[(row_off + pair) * 128 + texel]
-                      : table[static_cast<size_t>(pair) * 128 + texel];
-"""
-TABLE_MADE = """        l_w[q] = 0x3C003C00u ^ static_cast<uint32_t>((iy & 7) * 16 + (ix & 15));
-"""
-DECODE = """        const float th = floorf(scode / 8192.0f) * 0.025f;
-        const float sbase = fmodf(scode, 8192.0f);
-        const int s_idx = static_cast<int>(fmodf(sbase, 65.0f));
-        const int p_idx = static_cast<int>(floorf(sbase / 65.0f)) - 1;
-        const float lcum = floorf(hist / 4096.0f) * 0.025f;
-        const float lhd = fmodf(hist, 4096.0f) * 0.025f;
-"""
-DECODE_CHEAP = """        const int sc = static_cast<int>(scode);
-        const float th = scode * 3.0517578e-6f;
-        const int s_idx = sc & 63;
-        const int p_idx = (sc >> 6) & 63;
-        const float lcum = hist * 6.1035156e-6f;
-        const float lhd = hist * 0.025f;
-"""
-CHEAP_MACROS = """#undef R1_DIV
-#undef R1_RCP
-#undef R1_HALVINGS
-#define R1_DIV(a, b) ((a) * __fdividef(1.0f, (b)))
-#define R1_RCP(x) __fdividef(1.0f, (x))
-#define R1_HALVINGS(d, th) 0.0f
-"""
-
-
-def fixed(g: int, slots=SLOTS, table=TABLE, decode=DECODE, macros="") -> str:
-    return (FIXED.replace("@G@", str(g)).replace("@SLOTS@\n", slots)
-            .replace("@TABLE@\n", table).replace("@DECODE@\n", decode)
-            .replace("@MACROS@\n", macros))
-
-
-# The integer decode: scode and hist hold integers below 2^24, so the
-# shifts, masks, % 65 and / 65 equal the f32 floorf / fmodf chain.
-INT_DECODE = [(
-    "      const float th = floorf(scode / 8192.0f) * 0.025f;\n"
-    "      const float sbase = fmodf(scode, 8192.0f);\n"
-    "      const int s_idx = static_cast<int>(fmodf(sbase, 65.0f));\n"
-    "      const int p_idx = static_cast<int>(floorf(sbase / 65.0f)) - 1;\n"
-    "      const float lcum = floorf(hist / 4096.0f) * 0.025f;\n"
-    "      const float lhd = fmodf(hist, 4096.0f) * 0.025f;\n",
-    "      const int sc = static_cast<int>(scode), hc = static_cast<int>(hist);\n"
-    "      const float th = static_cast<float>(sc >> 13) * 0.025f;\n"
-    "      const int s_idx = (sc & 8191) % 65;\n"
-    "      const int p_idx = (sc & 8191) / 65 - 1;\n"
-    "      const float lcum = static_cast<float>(hc >> 12) * 0.025f;\n"
-    "      const float lhd = static_cast<float>(hc & 4095) * 0.025f;\n", 1)]
-# The search budget only where it can decide the result.
-LAZY_BUDGET = [
-    ("        const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
-     "        const bool budget_ok =\n"
-     "            static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(s_max);\n"
-     "        const bool search_ok =\n"
-     "            searchlane || (dual.has_back && !backray && back_ok && (hitd <= scene_back));\n"
-     "        hit_now = !is_sky && (base_hit || (search_ok && (d <= 0.0f) && budget_ok));\n",
-     "        const bool search_ok =\n"
-     "            searchlane || (dual.has_back && !backray && back_ok && (hitd <= scene_back));\n"
-     "        hit_now = !is_sky && base_hit;\n"
-     "        if (!is_sky && !base_hit && search_ok && d <= 0.0f) {\n"
-     "          const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
-     "          hit_now = static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(s_max);\n"
-     "        }\n", 1),
-    ("        const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
-     "        const bool budget_ok =\n"
-     "            static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(s_max);\n"
-     "        const bool in_window = (d >= -th) || (backray && budget_ok);\n"
-     "        hit_now = (d <= 0.0f) && in_window && !is_sky;\n",
-     "        hit_now = (d <= 0.0f) && (d >= -th) && !is_sky;\n"
-     "        if (!hit_now && backray && d <= 0.0f && !is_sky) {\n"
-     "          const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
-     "          hit_now = static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(s_max);\n"
-     "        }\n", 1),
+# The flat loop without its round structure: a lane tests every link in
+# [ptr, n_cand), the script passing ptr + the plain version's link count
+# as n_cand.
+FIXED = [("    if (j > 0 && pair != pair0) {\n", "    if (false) {\n", 1),
+         ("    if (more && ++j == a.chain) {\n", "    if (false) {\n", 1)]
+# (a) The slot fields made from the lane and the link.
+SLOTS_MADE = [
+    ("    const float cd = __ldg(a.pk_cum + o);\n"
+     "    const int sc = static_cast<int>(__ldg(a.pk_scode + o));\n",
+     "    const float cd = 0.25f * static_cast<float>(ptr + 1);\n"
+     "    const int sc = ptr + 65 * (ptr + 1) + 8192 * (lane & 63);\n", 1),
+    ("      const float step = __ldg(dual.pk_step + o) * 0.025f;\n",
+     "      const float step = static_cast<float>(ptr + 1) * 0.025f;\n", 1),
+]
+# (b) The table word from registers.
+TABLE_MADE = [
+    ("      const uint32_t word = __ldg(a.table + (row_off + pair) * 128 + texel);\n",
+     "      const uint32_t word = 0x3C003C00u ^ static_cast<uint32_t>(texel + pair);\n", 1),
+    ("      const uint32_t word = __ldg(a.table + static_cast<size_t>(pair) * 128 + texel);\n",
+     "      const uint32_t word = 0x3C003C00u ^ static_cast<uint32_t>(texel + pair);\n", 1),
+]
+# (c) One approximate reciprocal for the divides, no search budget, the
+# step index by a mask.
+ARITH = [
+    ("    const float u = cx / w * 0.5f + 0.5f;\n    const float v = cy / w * 0.5f + 0.5f;\n"
+     "    const float hitd = 1.0f / (cz / w * zz + zw);\n",
+     "    const float rw = __fdividef(1.0f, w);\n    const float u = cx * rw * 0.5f + 0.5f;\n"
+     "    const float v = cy * rw * 0.5f + 0.5f;\n"
+     "    const float hitd = __fdividef(1.0f, cz * rw * zz + zw);\n", 1),
+    ("1.0f / (t_raw * zz + zw)", "__fdividef(1.0f, t_raw * zz + zw)", 1),
+    ("1.0f / (b_raw * zz + zw)", "__fdividef(1.0f, b_raw * zz + zw)", 1),
+    ("1.0f / (d_raw * zz + zw)", "__fdividef(1.0f, d_raw * zz + zw)", 1),
+    ("        const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n",
+     "        const float halvings = 0.0f;\n", 2),
+    ("    const int s_idx = (sc & 8191) % 65;\n", "    const int s_idx = sc & 63;\n", 1),
+]
+# The earlier decode: f32 floorf / fmodf (same values).
+FLOAT_DECODE = [
+    ("    const int sc = static_cast<int>(__ldg(a.pk_scode + o));\n",
+     "    const float scode = __ldg(a.pk_scode + o);\n"
+     "    const int sc = static_cast<int>(scode);\n", 1),
+    ("    const float th = static_cast<float>(sc >> 13) * 0.025f;\n"
+     "    const int s_idx = (sc & 8191) % 65;\n",
+     "    const float th = floorf(scode / 8192.0f) * 0.025f;\n"
+     "    const int s_idx = static_cast<int>(fmodf(fmodf(scode, 8192.0f), 65.0f));\n", 1),
+]
+# The earlier budget: computed for every link (same values).
+EAGER_BUDGET = [
+    ("      hit_now = !is_sky && base_hit;\n"
+     "      // The search budget only where it decides the result.\n"
+     "      if (!is_sky && !base_hit && search_ok && d <= 0.0f) {\n"
+     "        const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
+     "        hit_now = static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(a.s_max);\n"
+     "      }\n",
+     "      const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
+     "      const bool budget_ok =\n"
+     "          static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(a.s_max);\n"
+     "      hit_now = !is_sky && (base_hit || (search_ok && (d <= 0.0f) && budget_ok));\n", 1),
+    ("      hit_now = (d <= 0.0f) && (d >= -th) && !is_sky;\n"
+     "      if (!hit_now && backray && d <= 0.0f && !is_sky) {\n"
+     "        const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
+     "        hit_now = static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(a.s_max);\n"
+     "      }\n",
+     "      const float halvings = ceilf(log2f(fmaxf(-d / fmaxf(th, 1e-6f), 1.0f)));\n"
+     "      const bool budget_ok =\n"
+     "          static_cast<float>(s_idx + 1) + halvings <= static_cast<float>(a.s_max);\n"
+     "      hit_now = (d <= 0.0f) && ((d >= -th) || (backray && budget_ok)) && !is_sky;\n", 1),
+]
+BOUNDS = "__launch_bounds__(THREADS, DUAL ? 8 : 12)"
+# The slot and table reads as plain loads, not through the read-only
+# data cache (__ldg).
+PLAIN_LOADS = [
+    ("__ldg(a.pk_cum + o)", "a.pk_cum[o]", 1),
+    ("__ldg(a.pk_scode + o)", "a.pk_scode[o]", 1),
+    ("__ldg(dual.pk_step + o)", "dual.pk_step[o]", 1),
+    ("__ldg(a.table + (row_off + pair) * 128 + texel)", "a.table[(row_off + pair) * 128 + texel]",
+     1),
+    ("__ldg(a.table + static_cast<size_t>(pair) * 128 + texel)",
+     "a.table[static_cast<size_t>(pair) * 128 + texel]", 1),
+]
+# The next link's slot fields loaded while the current link is tested.
+PREFETCH = [
+    ("  int r = 0, j = 0, pair0 = 0;\n  while (more) {\n",
+     "  int r = 0, j = 0, pair0 = 0;\n"
+     "  float cd_n = 0.0f, step_n = 0.0f;\n"
+     "  int sc_n = 0;\n"
+     "  if (more) {\n"
+     "    const size_t o0 = static_cast<size_t>(ptr) * nn + lane;\n"
+     "    cd_n = __ldg(a.pk_cum + o0);\n"
+     "    sc_n = static_cast<int>(__ldg(a.pk_scode + o0));\n"
+     "    if (DUAL) step_n = __ldg(dual.pk_step + o0);\n"
+     "  }\n"
+     "  while (more) {\n", 1),
+    ("    const float cd = __ldg(a.pk_cum + o);\n"
+     "    const int sc = static_cast<int>(__ldg(a.pk_scode + o));\n",
+     "    const float cd = cd_n;\n"
+     "    const int sc = sc_n;\n"
+     "    const float step_c = step_n;\n"
+     "    if (ptr + 1 < nc) {\n"
+     "      cd_n = __ldg(a.pk_cum + o + nn);\n"
+     "      sc_n = static_cast<int>(__ldg(a.pk_scode + o + nn));\n"
+     "      if (DUAL) step_n = __ldg(dual.pk_step + o + nn);\n"
+     "    }\n", 1),
+    ("__ldg(dual.pk_step + o) * 0.025f", "step_c * 0.025f", 1),
 ]
 
+def shape(threads: int | None, plain: int | None, dual: int | None = None) -> list:
+    """The block size and the blocks an SM ``__launch_bounds__`` asks for
+    (plain, dual; None: none)."""
+    patches = []
+    if threads is not None:
+        patches.append(("constexpr int THREADS = 128;\n", f"constexpr int THREADS = {threads};\n",
+                        1))
+    bounds = ("__launch_bounds__(THREADS)" if plain is None
+              else f"__launch_bounds__(THREADS, DUAL ? {dual} : {plain})")
+    return patches + [(BOUNDS, bounds, 1)]
 
-def threads(t: int) -> list:
-    return [("    const int threads = 128;\n", f"    const int threads = {t};\n", 2)]
 
-
-# name: (replacements, exact, fixed-count). A replacement is (old, new,
-# times old occurs) or ("@rounds@", new): the rounds, ROUNDS_FROM to
-# ROUNDS_TO, replaced. "library" is resolve_rounds.cu itself.
+# name: (replacements, exact, fixed-count). "library" is
+# resolve_rounds.cu itself; "parent", with --parent, that tree's.
 COPIES = {
     "library": ([], True, False),
-    "t64": (threads(64), True, False),
-    "t256": (threads(256), True, False),
-    "int+lazy": (INT_DECODE + LAZY_BUDGET, True, False),
-    "fixed": ([("@rounds@", fixed(1))], True, True),
-    "fixed-slots": ([("@rounds@", fixed(1, slots=SLOTS_MADE))], False, True),
-    "fixed-table": ([("@rounds@", fixed(1, table=TABLE_MADE))], False, True),
-    "fixed-arith": ([("@rounds@", fixed(1, decode=DECODE_CHEAP, macros=CHEAP_MACROS))],
-                    False, True),
-    "fixed-hoist2": ([("@rounds@", fixed(2))], True, True),
-    "fixed-hoist4": ([("@rounds@", fixed(4))], True, True),
+    "free-regs": (shape(None, None), True, False),
+    "min8/6": (shape(None, 8, 6), True, False),
+    "min10/8": (shape(None, 10, 8), True, False),
+    "t64": (shape(64, 24, 16), True, False),
+    "t256": (shape(256, 6, 4), True, False),
+    "plain-loads": (PLAIN_LOADS, True, False),
+    "prefetch": (PREFETCH, True, False),
+    "float-decode": (FLOAT_DECODE, True, False),
+    "eager-budget": (EAGER_BUDGET, True, False),
+    "fixed": (FIXED, True, True),
+    "fixed-slots": (FIXED + SLOTS_MADE, False, True),
+    "fixed-table": (FIXED + TABLE_MADE, False, True),
+    "fixed-arith": (FIXED + ARITH, False, True),
 }
 
 
 def patched(src: str, patches: list) -> str:
     """``src`` with each replacement applied in turn; each old text must
     occur exactly as often as it says."""
-    for patch in patches:
-        if patch[0] == "@rounds@":
-            for anchor in (ROUNDS_FROM, ROUNDS_TO):
-                if src.count(anchor) != 1:
-                    raise RuntimeError(f"anchor found {src.count(anchor)} times: {anchor!r}")
-            i, j = src.index(ROUNDS_FROM), src.index(ROUNDS_TO) + len(ROUNDS_TO)
-            src = src[:i] + patch[1] + src[j:]
-            continue
-        old, new, times = patch
+    for old, new, times in patches:
         if src.count(old) != times:
             raise RuntimeError(f"anchor found {src.count(old)} times, not {times}: {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def file_name(copy: str) -> str:
+    return re.sub(r"[^\w-]", "_", copy)
 
 
 def sass_loops(so: Path) -> dict:
@@ -360,14 +280,14 @@ def build_copies(parent: Path | None) -> dict:
     for name, (patches, _, _) in COPIES.items():
         path = src
         if patches:
-            path = OUT_DIR / f"{name.replace('+', '_')}.cu"
+            path = OUT_DIR / f"{file_name(name)}.cu"
             path.write_text(patched(src.read_text(), patches))
         jobs[name] = path
     if parent is not None:
         jobs["parent"] = parent / "unitysspathtracingurp_tpu_torch" / "csrc" / "resolve_rounds.cu"
     procs = {}
     for name, path in jobs.items():
-        so = OUT_DIR / f"{name.replace('+', '_')}.so"
+        so = OUT_DIR / f"{file_name(name)}.so"
         procs[name] = (so, subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(so), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -401,14 +321,9 @@ def run_set(label, dual, args, kw, libs, results):
     """Time and check every copy on one input set of R1 (``dual``:
     R1-dual)."""
     wrapper = ph.resolve_rounds_dual if dual else ph.resolve_rounds
-    links = []
-    ref = (ph.resolve_rounds_dual_ref if dual else ph.resolve_rounds_ref)(
-        *args, **kw, links_out=links)
-    links = links[0]
+    ref, links, b = cs.r1_reference(args, kw, dual)
     n = args[0].shape[1]
     n_links = float(links.sum())
-    b = (cs.r1_dual_bound(n, n_links, kw["tiles_per_combo"] * 128, args[8].unique().numel())
-         if dual else cs.r1_bound(n, n_links, args[7].numel()))
     state = kw.get("state")
     ptr0 = (state[0].to(torch.int32) if state is not None
             else torch.zeros(n, dtype=torch.int32, device=links.device))
@@ -441,8 +356,7 @@ def run_set(label, dual, args, kw, libs, results):
     ms = {name: sum(r["ms"]) / 2 for name, r in row["runs"].items()}
     row["split"] = {term: ms["fixed"] - ms[copy] for term, copy in (
         ("a_slot_reads", "fixed-slots"), ("b_table_reads", "fixed-table"),
-        ("c_arithmetic", "fixed-arith"), ("e_latency_hoist2", "fixed-hoist2"),
-        ("e_latency_hoist4", "fixed-hoist4")) if copy in ms and "fixed" in ms}
+        ("c_arithmetic", "fixed-arith")) if copy in ms and "fixed" in ms}
     if "fixed" in ms:
         row["split"]["rounds_control"] = ms["library"] - ms["fixed"]
     print(f"ablation {row['kernel']} {label}: N {n}, {kw['n_rounds']} rounds"

@@ -134,6 +134,58 @@ def test_resolve_rounds_kernel_bit_exact(case):
     assert torch.equal(got, ref)
 
 
+
+def _window_leaves(r_args, r_kw, dual=False):
+    """Share of the lanes with two or more candidates whose slot-1 link
+    lies outside slot 0's window (pair != pair0): the links that end a
+    round early."""
+    pk = r_args[:4] if dual else r_args[:3]
+    pos, d, scalars = r_args[5 if dual else 4], r_args[6 if dual else 5], r_args[-1]
+    m, zz, zw = [scalars[i] for i in range(16)], scalars[16], scalars[17]
+    pairs = [ph._link(m, zz, zw, pos, d, *[f[slot] for f in pk], gh=r_kw["gh"], gw=r_kw["gw"],
+                      pairs_x=r_kw.get("pairs_x", 0), tiles_x=r_kw.get("tiles_x", 0),
+                      dual=dual)["pair"] for slot in (0, 1)]
+    two = r_args[4 if dual else 3] >= 2
+    return float((pairs[0] != pairs[1])[two].float().mean())
+
+
+def check_resolve_branches(fn, ref_fn, r_args, r_kw, k, dual, case):
+    """R1 (or R1-dual) against its plain version, bit for bit, from the
+    zero state and from the state one round in (lanes at mixed ptr), on
+    inputs that reach the kernel's branches: the search budget, links
+    that leave link 0's window, and (``case`` "full") lanes that run to
+    ptr = n_cand = K."""
+    n = r_args[0].shape[1]
+    got, ref = fn(*r_args, **r_kw), ref_fn(*r_args, **r_kw)
+    zero = ph.zero_state(n, dual, r_args[0].device)
+    mid = ref_fn(*r_args, state=zero, **dict(r_kw, n_rounds=1))
+    got_mid = fn(*r_args, state=mid, **r_kw)
+    ref_mid = ref_fn(*r_args, state=mid, **r_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(got_mid.view(torch.int32), ref_mid.view(torch.int32))
+    n_cand = r_args[4 if dual else 3]
+    assert mid[0].unique().numel() >= 3  # mixed ptr
+    hit, diff, th = ref[0] > 0.5, ref[2], ref[3]
+    budget = hit & (ref[14] > 0.5) if dual else hit & (diff < -th)
+    assert budget.any()  # hits only the search budget allows
+    assert _window_leaves(r_args, r_kw, dual) > 0.05
+    if case == "full":
+        assert ((ref_mid[0] == k) & (n_cand == k) & (ref_mid[1] < 0.5)).any()
+
+
+@pytest.mark.parametrize("rounds", [4, 10])
+@pytest.mark.parametrize("pcase", ["random", "full"])
+def test_resolve_rounds_branches_bit_exact(case, pcase, rounds):
+    tiles, args, kw = case
+    args, kw = pack_case(args, kw, tiles, pcase, 5)
+    packs = fs.schedule_pack_ref(*args, **kw)
+    r_args = (*packs, args[0], args[1], args[5], tiles.pair_table, args[7])
+    r_kw = dict(gh=H, gw=W, pairs_x=tiles.pairs_x, n_rounds=rounds, chain=4, s_max=kw["s_max"])
+    check_resolve_branches(ph.resolve_rounds, ph.resolve_rounds_ref, r_args, r_kw, kw["k"],
+                           False, pcase)
+
+
 def _dual_inputs(dev):
     """Random rays in the glass box at 256^2 lanes, with the refraction +
     backface (3-combo) tiles."""
@@ -202,6 +254,19 @@ def test_resolve_rounds_dual_kernel_bit_exact(dual_case, inside):
     assert LAUNCHES["resolve_rounds_dual"] == before + 1
     assert got.shape == (15, dual_case[1]) and got[0].mean() > 0.02
     assert torch.equal(got, ref)
+
+
+
+@pytest.mark.parametrize("pcase", ["random", "full"])
+@pytest.mark.parametrize("inside", [0, 1, 2])
+def test_resolve_rounds_dual_branches_bit_exact(dual_case, inside, pcase):
+    args, kw, back, r_kw = _dual_args(dual_case, inside)
+    args, kw = pack_case(args, kw, dual_case[5], pcase, 6)
+    packs = fs.schedule_pack_dual_ref(*args, **kw)
+    r_args = (*packs, args[0], args[1], back, args[5], args[6], dual_case[5].tile_table, args[9])
+    r_kw = dict(r_kw, n_rounds=10 if pcase == "full" else 4, s_max=kw["s_max"])
+    check_resolve_branches(ph.resolve_rounds_dual, ph.resolve_rounds_dual_ref, r_args, r_kw,
+                           kw["k"], True, pcase)
 
 
 def test_kernel_rejects_cpu_inputs_on_cuda_call(case, dual_case):

@@ -54,7 +54,7 @@ from unitysspathtracingurp_tpu_torch.ops import envprobe as tenv
 from unitysspathtracingurp_tpu_torch.ops import rng as trng
 from unitysspathtracingurp_tpu_torch.ops.fused_schedule import schedule_pack, schedule_pack_dual
 from unitysspathtracingurp_tpu_torch.ops.pathtrace import compact_indices
-from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import resolve_rounds, resolve_rounds_dual
+from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import _link, resolve_rounds, resolve_rounds_dual
 from unitysspathtracingurp_tpu_torch.utils import image as timage
 
 torch.set_num_threads(1)
@@ -526,3 +526,29 @@ def test_renderer_none_mode_and_disabled(small_scene):
     assert out.shape == (32, 32, 3) and torch.isfinite(out).all()
     off = Renderer(tconfig.PTSettings(state=False), 32, 32, device="cpu")
     assert off.render_frame(gb, cam) is gb.emission
+
+
+def test_resolve_integer_decode_matches_link():
+    """R1's kernel decodes the slot codes with shifts, masks and % / by
+    65. Over every code the packer can produce, that equals the f32
+    floor / remainder decode of the plain version's ``_link``, bit for
+    bit: scode = step + 65 (previous step + 1) + 8192 q, step and
+    previous step + 1 in [0, 64], q up to 2046 (the JAX package asserts
+    8192 (cap + 1) + 65 * 65 + 64 < 2^24, pathtrace_hiz.py:441), and
+    hist = 4096 lcum + lhd, both codes in [0, 4095]."""
+    m = [torch.tensor(float(i % 5 == 0)) for i in range(16)]
+    one, ray = torch.tensor(1.0), torch.zeros(1, 3)  # one position: the decode is the test
+    q = torch.arange(2047, dtype=torch.float32)[:, None]
+    sbase = torch.arange(65 * 65)
+    scode = q * 8192.0 + sbase.to(torch.float32)[None, :]
+    hist = torch.arange(1 << 24, dtype=torch.float32).view(4096, 4096)
+    lk = _link(m, one, one, ray, ray, torch.zeros(()), scode, hist, gh=8, gw=8, pairs_x=1,
+               tiles_x=1, dual=False)
+    # The kernel's integer decode: th = (sc >> 13) * 0.025, s_idx = (sc & 8191) % 65,
+    # p_idx = (sc & 8191) / 65 - 1, lcum = (hc >> 12) * 0.025, lhd = (hc & 4095) * 0.025.
+    codes = torch.arange(4096, dtype=torch.float32) * 0.025
+    assert torch.equal(lk["th"], (q * 0.025).expand_as(scode))
+    assert torch.equal(lk["s_idx"], (sbase % 65).expand_as(scode))
+    assert torch.equal(lk["p_idx"], (sbase // 65 - 1).expand_as(scode))
+    assert torch.equal(lk["lcum"], codes[:, None].expand(4096, 4096))
+    assert torch.equal(lk["lhd"], codes[None, :].expand(4096, 4096))
