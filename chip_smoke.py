@@ -35,7 +35,10 @@ Phases (any failure exits non-zero and prints no result line):
   6. a report, never a gate: the diagnostic march (K2 + K3, counts set
      to 0 before and read after) through a 1080p headline frame, its
      bounce-0 locality and round counters with and without the home
-     prefix, and the home prefix x round budget A/B;
+     prefix, R1 on every bounce of the headline and home frames and
+     R1-dual on every bounce of the dual frame (their own inputs, with
+     bound, links a lane and warp efficiency), and the home prefix x
+     round budget A/B;
 then one JSON line of per-kernel numbers, the card line again, and the
 last line {"ok": true, "device": {...}}.
 
@@ -753,34 +756,25 @@ def warp_efficiency(links) -> float:
     return float(per_warp.sum()) / max(32.0 * float(per_warp.amax(1).sum()), 1.0)
 
 
-def r1_frame_report(dev, card, path: str) -> list:
+def r1_frame_report(dev, card, path: str):
     """R1 (R1-dual on the dual path) on its own inputs in every bounce of
     a 1080p frame of ``path``: ms, bound, links a lane and warp
-    efficiency. Returns one dict a bounce."""
-    import torch
-
+    efficiency."""
     from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
 
     dual = path == "dual"
     name = "resolve_rounds_dual" if dual else "resolve_rounds"
     calls, _ = frame_calls(dev, path, name)
-    rows = []
     for b, (a, kw) in enumerate(calls):
         _, links, b_ = r1_reference(a, kw, dual)
         n = a[0].shape[1]
         ms = cuda_ms(lambda: getattr(ph, name)(*a, **kw), 20)
-        row = dict(bounce=b, lanes=n, state_in=kw.get("state") is not None,
-                   links_per_lane=float(links.sum()) / max(n, 1),
-                   warp_efficiency=warp_efficiency(links), ms=ms, **b_)
-        rows.append(row)
         print(f"phase 6 {'R1-dual' if dual else 'R1'} on the {path} frame's bounce {b} "
               f"({n} lanes, {kw['n_rounds']} rounds"
-              f"{', from the state in' if row['state_in'] else ''}): {ms:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms (share {row['bound_ms'] / ms:.3f}), "
-              f"{row['links_per_lane']:.3f} links a lane, warp efficiency "
-              f"{row['warp_efficiency']:.4f} [{card}]")
-    torch.cuda.synchronize()
-    return rows
+              f"{', from the state in' if kw.get('state') is not None else ''}): {ms:.4f} ms, "
+              f"bound {b_['bound_ms']:.4f} ms (share {b_['bound_ms'] / ms:.3f}), "
+              f"{float(links.sum()) / max(n, 1):.3f} links a lane, warp efficiency "
+              f"{warp_efficiency(links):.4f} [{card}]")
 
 
 def diagnostic_report(dev, card):
