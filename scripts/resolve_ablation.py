@@ -39,7 +39,8 @@ earlier f32 decode and the budget on every link; ``plain-loads`` reads
 the slots and the table without ``__ldg``; ``prefetch`` loads the next
 link's slot fields while the current one is tested; ``t64`` / ``t256``
 and ``min*`` change the block size and the blocks an SM that
-``__launch_bounds__`` asks for (``free-regs``: none). With ``--parent
+``__launch_bounds__`` asks for (``free-regs``: none); ``stream-rows``
+and ``stream-slots`` store the rows and read the slots evict-first. With ``--parent
 DIR`` (an unpacked earlier tree, e.g. ``git archive`` of the parent
 commit) that tree's own ``resolve_rounds.cu`` is built and timed beside
 the copies, as "parent". Writes every number to ``--out`` (default
@@ -183,6 +184,23 @@ PREFETCH = [
     ("__ldg(dual.pk_step + o) * 0.025f", "step_c * 0.025f", 1),
 ]
 
+def streaming_rows(src: str) -> str:
+    """Every row store as a streaming store (``__stcs``: evict first), so
+    the rows do not push the table and the slot sectors out of L2."""
+    out, n = re.subn(r"(out\[[^\]]+\]) = ([^;]+);", r"__stcs(&\1, \2);", src)
+    if n != 27:
+        raise RuntimeError(f"{n} row stores, not 27")
+    return out
+
+
+# The slot fields read as streaming loads (``__ldcs``: evict first).
+STREAMING_SLOTS = [
+    ("__ldg(a.pk_cum + o)", "__ldcs(a.pk_cum + o)", 1),
+    ("__ldg(a.pk_scode + o)", "__ldcs(a.pk_scode + o)", 1),
+    ("__ldg(dual.pk_step + o)", "__ldcs(dual.pk_step + o)", 1),
+]
+
+
 def shape(threads: int | None, plain: int | None, dual: int | None = None) -> list:
     """The block size and the blocks an SM ``__launch_bounds__`` asks for
     (plain, dual; None: none)."""
@@ -195,7 +213,8 @@ def shape(threads: int | None, plain: int | None, dual: int | None = None) -> li
     return patches + [(BOUNDS, bounds, 1)]
 
 
-# name: (replacements, exact, fixed-count). "library" is
+# name: (replacements, exact, fixed-count); a replacement may also be a
+# function of the source. "library" is
 # resolve_rounds.cu itself; "parent", with --parent, that tree's.
 COPIES = {
     "library": ([], True, False),
@@ -203,6 +222,9 @@ COPIES = {
     "min8/6": (shape(None, 8, 6), True, False),
     "min10/8": (shape(None, 10, 8), True, False),
     "t64": (shape(64, 24, 16), True, False),
+    "stream-rows": ([streaming_rows], True, False),
+    "stream-slots": (STREAMING_SLOTS, True, False),
+    "t64+stream-rows": (shape(64, 24, 16) + [streaming_rows], True, False),
     "t256": (shape(256, 6, 4), True, False),
     "plain-loads": (PLAIN_LOADS, True, False),
     "prefetch": (PREFETCH, True, False),
@@ -218,7 +240,11 @@ COPIES = {
 def patched(src: str, patches: list) -> str:
     """``src`` with each replacement applied in turn; each old text must
     occur exactly as often as it says."""
-    for old, new, times in patches:
+    for patch in patches:
+        if callable(patch):
+            src = patch(src)
+            continue
+        old, new, times = patch
         if src.count(old) != times:
             raise RuntimeError(f"anchor found {src.count(old)} times, not {times}: {old!r}")
         src = src.replace(old, new)
