@@ -32,9 +32,10 @@ Phases (any failure exits non-zero and prints no result line):
      pallas_extract (the unfused rounds); 1 warm-up + timed frames;
      each followed by a torch.profiler report of two more frames (a
      report, never a gate);
-  6. a report, never a gate: the diagnostic march (K2 + K3, counts set
-     to 0 before and read after) through a 1080p headline frame, its
-     bounce-0 locality and round counters with and without the home
+  6. a report, whose gates are the diagnostic march's launch counts and
+     K3's bit identity: the diagnostic march (K2 + K3, counts set to 0
+     before and read after) through a 1080p headline frame, K3 on its
+     own inputs in every bounce of that march, its bounce-0 locality and round counters with and without the home
      prefix, R1 on every bounce of the headline and home frames and
      R1-dual on every bounce of the dual frame (their own inputs, with
      bound, links a lane and warp efficiency), and the home prefix x
@@ -622,13 +623,42 @@ def check_gather_kernels(h, w, dev, timing: bool):
             out["broadcast_table_select"]["library_ms"] = cuda_ms(
                 lambda: torch.take(flat, idx64), 20)
             k = kw["k"]
-            out["pack_by_slot"].update(bound(
-                s_n * (1 + 4 * len(fields)) + k * n * 4 * len(fields) + n * 4,
-                s_n * (2 + len(fields))))
+            out["pack_by_slot"].update(k3_bound(len(steps), n, k, len(fields)))
             out["pack_by_slot"]["ms"] = cuda_ms(lambda: pg.pack_by_slot(cand, fields, k), 20)
             out["pack_by_slot"]["plain_ms"] = cuda_ms(
                 lambda: pg.pack_by_slot_ref(cand, fields, k), 5)
     return out
+
+
+def k3_bound(s: int, n: int, k: int, nf: int) -> dict:
+    """K3's bound: the (S, N) flags (1 B) and ``nf`` fields (4 B) read
+    once, the ``nf`` (K, N) tables and the (N,) count written once."""
+    return bound(s * n * (1 + 4 * nf) + k * n * 4 * nf + n * 4, s * n * (2 + nf))
+
+
+def k3_frame_report(dev, card):
+    """K3 on its own inputs in every bounce of the 1080p diagnostic march
+    (``frame_calls`` "diagnostic"): each call bit for bit against the
+    plain version (a gate), then its ms, bound and share."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pallas_gather as pg
+
+    calls, _ = frame_calls(dev, "diagnostic", "pack_by_slot")
+    gate(len(calls) > 0, "the diagnostic march called pack_by_slot")
+    for b, (a, kw) in enumerate(calls):
+        got, ref = pg.pack_by_slot(*a, **kw), pg.pack_by_slot_ref(*a, **kw)
+        torch.cuda.synchronize()
+        equal = torch.equal(got[1], ref[1]) and all(
+            torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got[0], ref[0]))
+        (s, n), nf, k = a[0].shape, len(a[1]), ref[0][0].shape[0]
+        b_ = k3_bound(s, n, k, nf)
+        ms = cuda_ms(lambda: pg.pack_by_slot(*a, **kw), 20)
+        print(f"phase 6 K3 on the diagnostic march's bounce {b} (S = {s}, N = {n}, {nf} fields, "
+              f"K = {k}): equal to the plain version {equal}, {ms:.4f} ms, bound "
+              f"{b_['bound_ms']:.4f} ms (share {b_['bound_ms'] / ms:.3f}), flags set "
+              f"{a[0].float().mean().item():.4f} [{card}]")
+        gate(equal, f"K3 bit-exact on the diagnostic march's bounce {b}")
 
 
 def check_home_march(dev):
@@ -678,13 +708,20 @@ def check_home_march(dev):
 def frame_calls(dev, path: str, name: str):
     """(args, kwargs) of every call of ``pathtrace_hiz.<name>`` in one
     1080p frame of ``path`` (one a bounce, in order), on the kernels, and
-    the frame's tiles."""
+    the frame's tiles. ``path`` "diagnostic" is the diagnostic march
+    that ``diagnostic_report`` runs: the headline frame with
+    ``hiz_round_cap`` 0.4 and a ``_debug_out`` dict."""
     import torch
 
     from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
 
-    s, cfg, bde, glass = path_config(path)
+    debug = None
+    if path == "diagnostic":
+        s, cfg, bde, glass = path_config("headline")
+        cfg, debug = dataclasses.replace(cfg, hiz_round_cap=0.4), {}
+    else:
+        s, cfg, bde, glass = path_config(path)
     gb, cam = boxscene(H_FULL, W_FULL, dev, glass=glass)
     probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
     tiles = ph.build_tiles_for(gb, cam, s.variants())
@@ -698,7 +735,7 @@ def frame_calls(dev, path: str, name: str):
     setattr(ph, name, spy)
     try:
         ph.trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, tiles=tiles,
-                           back_depth_enabled=bde)
+                           back_depth_enabled=bde, _debug_out=debug)
         torch.cuda.synchronize()
     finally:
         setattr(ph, name, real)
@@ -827,6 +864,7 @@ def diagnostic_report(dev, card):
     lanes_cand = float((dbg["c0_n_cand"] > 0).sum())
     print(f"phase 6 diagnostic march (K2 + K3) through a {W_FULL}x{H_FULL} headline frame, "
           f"hiz_round_cap 0.4: launches {counts} [{card}]")
+    k3_frame_report(dev, card)
     print(f"phase 6 bounce 0 locality: candidates in the start pair window "
           f"{val['c0_cand_in_home'] / val['c0_cand_total']:.4f} of {val['c0_cand_total']:.0f}, "
           f"first candidate there {val['c0_first_in_home'] / lanes_cand:.4f} of "
