@@ -21,10 +21,11 @@ and holds its outputs against the plain version bit for bit, on:
   1080p headline frame that ``chip_smoke.diagnostic_report`` marches
   (``chip_smoke.frame_calls`` "diagnostic").
 
-Every copy is timed on (S, N) uint8 flags, so the wrapper copies
-nothing; ``library, bool flags`` times the unpatched file on the bool
-flags the march passes, so it includes whatever the wrapper does with
-them. The split (one thread a lane unless named):
+Every copy is timed on (S, N) uint8 flags; ``library, bool flags`` times
+the unpatched file on the bool flags the march passes, so it includes
+whatever the wrapper does with them (the earlier wrapper copied them to
+uint8; the wrapper now views their bytes). ``library`` is the shipped
+design, ``staged-t256``'s. The split (one thread a lane unless named):
 
 - ``scattered``: the earlier design (each flagged row's loads under the
   branch, each slot stored to row ``run`` of the (K, N) tables at once,
@@ -33,9 +34,9 @@ them. The split (one thread a lane unless named):
   four rows at a time, then selected: (b) the branchy loads = scattered
   - branchless;
 - ``staged-branchy``: slots staged in shared memory ([field][K][block],
-  thread index fastest) and the warp's rows written as 16-byte stores,
-  the loads still under the branch: (a) the scattered stores =
-  scattered - staged-branchy;
+  thread index fastest) and the warp's rows written as 16-byte stores
+  (``csrc/write_rows.cuh``), the loads still under the branch: (a) the
+  scattered stores = scattered - staged-branchy;
 - ``staged``: staged and branchless;
 - ``quad``: four lanes a thread, a 4-byte flag load and 16-byte field
   loads a row, each thread's four lanes staged and written as one
@@ -79,37 +80,6 @@ KERNEL_SPAN = ("struct Fields {\n  const float* in[4];\n  float* out[4];\n};\n",
 ENTRY_SPAN = ('extern "C" int sspt_pack_by_slot(',
               '// fields_in / fields_out: nf (3 or 4) pointers each, unused ones null.\n'
               'extern "C" int sspt_extract_chain(')
-
-# The warp's row copy of the staged designs: lane L of the warp copies
-# threads 4 (L % 8) .. + 3 of rows L / 8, L / 8 + 4, ... (16-byte shared
-# loads and stores; scalar where a row is not 16-byte aligned).
-ROWS = r"""
-template <int NF>
-__device__ __forceinline__ void copy_rows(const float* stage, float* const* outs, int n, int k,
-                                          int warp_lane0) {
-  __syncwarp();
-  const int wl = threadIdx.x & 31;
-  const int src = (threadIdx.x & ~31) + 4 * (wl & 7);
-  const int t = blockDim.x;
-  const int lane0 = warp_lane0 + 4 * (wl & 7);
-  const bool vec = (n & 3) == 0 && lane0 + 3 < n;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    for (int j = wl >> 3; j < k; j += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(stage + (f * k + j) * t + src);
-      float* dst = outs[f] + static_cast<size_t>(j) * n + lane0;
-      if (vec) {
-        *reinterpret_cast<float4*>(dst) = v;
-      } else {
-        if (lane0 < n) dst[0] = v.x;
-        if (lane0 + 1 < n) dst[1] = v.y;
-        if (lane0 + 2 < n) dst[2] = v.z;
-        if (lane0 + 3 < n) dst[3] = v.w;
-      }
-    }
-  }
-}
-"""
 
 # The earlier design, one lane a thread, stores scattered.
 SCATTERED = r"""
@@ -184,7 +154,7 @@ __global__ void pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f,
 """
 
 # Staged slots, the warp's rows; BRANCHY picks the loads under the branch.
-STAGED = ROWS + r"""
+STAGED = r"""
 template <int NF, bool BRANCHY>
 __global__ void __launch_bounds__(THREADS)
 pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f, int32_t* __restrict__ count,
@@ -233,7 +203,7 @@ pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f, int32_t* __restr
     for (int q = 0; q < NF; ++q) col[(q * k + j) * t] = 0.0f;
   }
   if (lane < n) count[lane] = cnt;
-  copy_rows<NF>(stage, f.out, n, k, lane - (threadIdx.x & 31));
+  write_rows<NF>(stage, f.out, n, k, lane - (threadIdx.x & 31));
 }
 
 """

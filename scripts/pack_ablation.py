@@ -2,7 +2,8 @@
 """Ablation of kernels K1, K4 and K6 (``csrc/schedule_pack.cu``) on one
 NVIDIA GPU: where their time goes, and which design is fastest.
 
-    python3 scripts/pack_ablation.py [--parent DIR] [--out FILE]   # repository root, a GPU
+    python3 scripts/pack_ablation.py [--parent DIR] [--out FILE] [--kernels K1,K4,K6]
+                                     [--copies NAME,...]   # repository root, a GPU
 
 Writes patched copies of ``schedule_pack.cu`` (``COPIES``: each a list of
 exact text replacements, each of which must match once) into
@@ -26,7 +27,13 @@ at the step that found it (copy ``device``, 128 threads):
 (a) its scattered slot stores = device - none, (b) no early exit =
 device - device+exit, (c) what is left with neither = none+exit, beside
 the bound; ``library`` is the unpatched file. Loop iterations a lane and
-a warp run with the exit come from the ``none+exit`` copy. With
+a warp run with the exit come from the ``none+exit`` copy. K6's copies
+run in the copy's own block (``Copy.home_*``): ``home-rR`` / ``-free``
+change its rows a block and the blocks an SM asked of ptxas, ``home-ldg*``
+read the minitile table through ``__ldg`` (shared memory: the staging
+only), ``home-strip-r2`` holds the strip in shared memory, and
+``home-no-tests`` drops the post-loop exact tests (its packs only are
+compared). ``--kernels`` and ``--copies`` pick what is built and timed. With
 ``--parent DIR`` (an unpacked earlier tree,
 e.g. ``git archive`` of the parent commit) that tree's own
 ``schedule_pack.cu`` is built and timed beside the copies, as "parent".
@@ -65,29 +72,39 @@ OUT_DIR = ROOT / "build" / "pack_ablation"
 
 # Anchors in schedule_pack.cu and what the copies put in their place.
 LOOP = "  for (int i = 1; i <= p.s_max && marching && run < k; ++i) {\n"
-STAGED = "  constexpr bool STAGED = !HOME;\n"
-WRITE_ROWS = ("  float* const outs[4] = {a.pk_cum, a.pk_scode, a.pk_hist, dual.pk_step};\n"
-              "  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, blockIdx.x * blockDim.x);\n")
+SLOT_FN = ("  // Field f of slot j, staged on chip.\n"
+           "  auto slot = [&](int f, int j) -> float& {\n"
+           "    return stage_col[(f * k + j) * static_cast<int>(blockDim.x)];\n"
+           "  };\n")
+OUTS = "  float* const outs[4] = {a.pk_cum, a.pk_scode, a.pk_hist, dual.pk_step};\n"
+WRITE_ROWS = (OUTS + "  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));\n")
+WRITE_ROWS_HOME = ("  float* const outs[3] = {a.pk_cum, a.pk_scode, a.pk_hist};\n"
+                   "  write_rows<3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));\n")
 STORE = ("        slot(0, run) = cum;\n        slot(1, run) = scode;\n"
          "        slot(2, run) = hist;\n        if (DUAL) slot(3, run) = qstep;\n")
 ZERO = ("  for (int j = cnt; j < k; ++j) {\n#pragma unroll\n"
         "    for (int f = 0; f < NF; ++f) slot(f, j) = 0.0f;\n  }\n")
 N_CAND = "  if (!HOME) {\n    a.n_cand[lane] = cnt;\n"
-SLOT_NOTE = "  // Field f of slot j: staged on chip, or in the (K, N) output.\n"
-SLOT_STAGED = "      return stage_col[(f * k + j) * static_cast<int>(blockDim.x)];\n"
 COMBO = "  const int combo_off = DUAL ? dual.combo[lane] * dual.combo_words : 0;\n"
 LDG = ("      const uint32_t word = __ldg(mini_table + mini);\n"
        "      const uint32_t bword = __ldg(dual.bmax_table + mini);\n")
 TABLE = ("  const int table_words = DUAL ? 0 : p.n_mini_words;\n"
          "  for (int i = threadIdx.x; i < table_words; i += blockDim.x) s_dyn[i] = mini_table[i];\n")
-HOME_CALL = ("    pack_lane<false, true>(lane_base + threadIdx.x, a, s_mini, p, none, home, "
-             "nullptr);\n")
+HOME_TABLE = ("  for (int i = threadIdx.x; i < p.n_mini_words; i += blockDim.x) "
+              "s_dyn[i] = mini_table[i];\n")
+HOME_STAGE = "  float* stage = reinterpret_cast<float*>(s_dyn + p.n_mini_words);\n"
+HOME_SMEM = "  if (smem < (n_mini_words + 3 * k * threads) * 4)"
+STRIP_READ = ("    const uint32_t word = __ldg(home.strip + srow * 128 + "
+              "(((iy2 & 7) << 4) | (ix2 & 15)));\n")
 
 # Every lane runs s_max steps.
 NO_EXIT = [(LOOP, "  for (int i = 1; i <= p.s_max; ++i) {\n")]
-# K1 / K4 store each slot to device memory at the step that finds it
-# (the earlier design; K6's stores), zeros past the count after the loop.
-DEVICE = [(STAGED, "  constexpr bool STAGED = false;\n"), (WRITE_ROWS, "")]
+# Each slot stored to device memory at the step that finds it (the
+# earlier design of K1 / K4, and of K6 before it staged), zeros past the
+# count after the loop.
+DEVICE = [(SLOT_FN, OUTS + "  auto slot = [&](int f, int j) -> float& {\n"
+                           "    return outs[f][static_cast<size_t>(j) * n + lane];\n  };\n"),
+          (WRITE_ROWS, ""), (WRITE_ROWS_HOME, "")]
 # No slots at all: only n_cand, one checksum word per lane in row 0 of
 # pk_cum and the lane's loop iterations in row 0 of pk_scode (the other
 # rows are left as allocated).
@@ -102,16 +119,15 @@ NO_SLOTS = DEVICE + [
 ]
 # Each lane writes its own column, row by row, instead of the warp's
 # 16-byte row copies.
-LANES = [
-    (ZERO, "#pragma unroll\n  for (int f = 0; f < NF; ++f) {\n"
-           "    for (int j = 0; j < k; ++j)\n"
-           "      outs[f][static_cast<size_t>(j) * n + lane] = j < cnt ? slot(f, j) : 0.0f;\n"
-           "  }\n"),
-    (WRITE_ROWS, ""),
-]
+COLUMN = ("#pragma unroll\n  for (int f = 0; f < NF; ++f) {\n"
+          "    for (int j = 0; j < k; ++j)\n"
+          "      outs[f][static_cast<size_t>(j) * n + lane] = j < cnt ? slot(f, j) : 0.0f;\n"
+          "  }\n")
+LANES = [(SLOT_FN, OUTS + SLOT_FN), (ZERO, COLUMN), (WRITE_ROWS, ""), (WRITE_ROWS_HOME, "")]
 # The slots in per-thread local arrays instead of shared memory.
-LOCAL = LANES + [(SLOT_NOTE, "  float local_slots[4][16];\n" + SLOT_NOTE),
-                 (SLOT_STAGED, "      return local_slots[f][j];\n")]
+LOCAL = [(SLOT_FN, OUTS + "  float local_slots[4][16];\n"
+                          "  auto slot = [&](int f, int j) -> float& { return local_slots[f][j]; };\n"),
+         (ZERO, COLUMN), (WRITE_ROWS, ""), (WRITE_ROWS_HOME, "")]
 # K4: the combo of the block's first lane (mini then bmax words) staged
 # in shared memory before the slot staging, other combos through __ldg.
 TABLES = [
@@ -137,48 +153,74 @@ TABLES = [
             "s_dyn[i] = mini_table[i];\n"
             "  }\n"),
 ]
-# K6 stages its slots as K1 does, after the table and the strip.
-HOME_STAGED = [
-    (STAGED, "  constexpr bool STAGED = true;\n"),
-    (HOME_CALL, "    float* stage = reinterpret_cast<float*>(s_strip + HOME_ROWS * 128);\n"
-                "    pack_lane<false, true>(lane_base + threadIdx.x, a, s_mini, p, none, home,\n"
-                "                           stage + threadIdx.x);\n"
-                "    float* const outs[3] = {a.pk_cum, a.pk_scode, a.pk_hist};\n"
-                "    write_rows<3>(stage, outs, p.n, p.k, lane_base);\n"
-                "    __syncwarp();  // before a lane stages its next lane block\n"),
-]
 
-# K6 with one thread a lane: a 128-thread block marches one row of its
-# lane block (grid w/128 x h) and loads the block's strip itself.
-HOME_LANE = [
-    ("  const int by = blockIdx.y, bx = blockIdx.x;\n",
-     "  const int by = blockIdx.y >> 3, bx = blockIdx.x;\n"),
-    ("  for (int r = 0; r < 8; ++r) {\n", "  {\n    const int r = blockIdx.y & 7;\n"),
-    ("    const dim3 grid(w / 128, h / 8);\n", "    const dim3 grid(w / 128, h);\n"),
+
+def home_rows(rows: int, min_blocks: int) -> list:
+    """K6 with blocks of ``rows`` screen rows (rows x 128 threads) and
+    ``min_blocks`` blocks an SM asked of ptxas."""
+    return [("constexpr int HOME_BLOCK_ROWS = 4;\n", f"constexpr int HOME_BLOCK_ROWS = {rows};\n"),
+            ("constexpr int HOME_MIN_BLOCKS = 2;\n",
+             f"constexpr int HOME_MIN_BLOCKS = {min_blocks};\n")]
+
+
+# K6 reads the minitile table through __ldg instead of shared memory
+# (its block holds the staging only; K1 in such a copy is not run).
+HOME_LDG_TABLE = [
+    (HOME_TABLE, ""),
+    ("      const uint32_t word = mini_table[mini];\n",
+     "      const uint32_t word = __ldg(mini_table + mini);\n"),
+    ("  pack_lane<false, true>(lane, a, s_dyn, p, none, home, stage + threadIdx.x);\n",
+     "  pack_lane<false, true>(lane, a, mini_table, p, none, home, stage + threadIdx.x);\n"),
+    (HOME_STAGE, "  float* stage = reinterpret_cast<float*>(s_dyn);\n"),
+    (HOME_SMEM, "  if (smem < (3 * k * threads) * 4)"),
+]
+# K6 holds its lane block's strip in shared memory after the table.
+HOME_STRIP_SHARED = [
+    (HOME_TABLE, HOME_TABLE + "  {\n    const int sby = blockIdx.y * HOME_BLOCK_ROWS >> 3;\n"
+                 "    const uint32_t* g = strips + (static_cast<size_t>(sby) * gridDim.x + "
+                 "blockIdx.x) * HOME_ROWS * 128;\n"
+                 "    for (int i = threadIdx.x; i < HOME_ROWS * 128; i += blockDim.x)\n"
+                 "      s_dyn[p.n_mini_words + i] = g[i];\n  }\n"),
+    ("  const HomeArgs home = {strips + (static_cast<size_t>(by) * gridDim.x + bx) * HOME_ROWS * "
+     "128,\n", "  const HomeArgs home = {s_dyn + p.n_mini_words,\n"),
+    (STRIP_READ, "    const uint32_t word = home.strip[srow * 128 + "
+                 "(((iy2 & 7) << 4) | (ix2 & 15))];\n"),
+    (HOME_STAGE, "  float* stage = reinterpret_cast<float*>(s_dyn + p.n_mini_words + "
+                 "HOME_ROWS * 128);\n"),
+    (HOME_SMEM, "  if (smem < (n_mini_words + HOME_ROWS * 128 + 3 * k * threads) * 4)"),
 ]
 # K6 without the post-loop exact tests of the home slots (the routing
 # stays; n_cand and the (11, N) rows are then not K6's).
 HOME_NO_TESTS = [("    if (j >= run_home || hitf) continue;\n", "    if (true) continue;\n")]
+STRIP_WORDS = 3 * 6 * 128
 
 
 class Copy(NamedTuple):
     """A copy of schedule_pack.cu: its replacements; whether K1 / K4 stage
-    slots in shared memory, K4 its combo's tables, K6 its slots (the
-    budget the wrappers pass); whether it has slots at all."""
+    slots in shared memory, K4 its combo's tables (the budget the wrappers
+    pass); K6's block (threads, and what its shared memory holds: the
+    table, the strip, the staging); whether it has slots at all, and
+    whether all its outputs are the plain version's (else K6's packs only)."""
 
     patches: list
     staged: bool = True
     tables: bool = False
-    home_staged: bool = False
+    home_threads: int = 512
+    home_table: bool = True
+    home_strip: bool = False
+    home_stage: bool = True
     slots: bool = True
     exact: bool = True
 
 
 # "library" is schedule_pack.cu itself, as the wrappers load it (K1 / K4
-# staged with the warp's row copies and the exit; K6 device stores with
-# the exit).
-# "parent": with --parent, that tree's own schedule_pack.cu (entry points
-# with the same arguments).
+# / K6 staged with the warp's row copies and the exit; K6 in 512-thread
+# blocks of 4 rows, the table in shared memory, the strip read through
+# __ldg). "parent": with --parent, that tree's own schedule_pack.cu (entry
+# points with the same arguments; its K6 marched a lane block's 8 rows
+# with 128 threads, the table and the strip in shared memory, and stored
+# each slot at once).
+PARENT = Copy([], home_threads=128, home_strip=True, home_stage=False)
 COPIES = {
     "device": Copy(DEVICE + NO_EXIT, staged=False),
     "device+exit": Copy(DEVICE, staged=False),
@@ -193,12 +235,18 @@ COPIES = {
     "shared-lanes+exit": Copy(LANES),
     "local+exit": Copy(LOCAL, staged=False),
     "shared+exit+tables": Copy(TABLES, tables=True),
-    "home-shared+exit": Copy(HOME_STAGED, home_staged=True),
-    "home-lane": Copy(HOME_LANE),
-    "home-lane-shared": Copy(HOME_LANE + HOME_STAGED, home_staged=True),
+    "home-r4-free": Copy(home_rows(4, 1)),
+    "home-r2": Copy(home_rows(2, 3), home_threads=256),
+    "home-r1": Copy(home_rows(1, 5), home_threads=128),
+    "home-ldg": Copy(HOME_LDG_TABLE, home_table=False),
+    "home-ldg-r2": Copy(HOME_LDG_TABLE + home_rows(2, 4), home_threads=256, home_table=False),
+    "home-ldg-r8": Copy(HOME_LDG_TABLE + home_rows(8, 1), home_threads=1024, home_table=False),
+    "home-strip-r2": Copy(HOME_STRIP_SHARED + home_rows(2, 3), home_threads=256,
+                          home_strip=True),
     "home-no-tests": Copy(HOME_NO_TESTS, exact=False),
 }
-# (copy, threads a block) timed per kernel; None: the budget's choice.
+# (copy, threads a block) timed per kernel; None: the budget's choice
+# (K6: the copy's own block).
 RUNS = {
     "K1": [("parent", None), ("device", 128), ("device+exit", 128), ("none", 128),
            ("none+exit", 128), ("none+exit+occ3", 512), ("shared", None),
@@ -209,9 +257,10 @@ RUNS = {
            ("library", 128), ("library", 256), ("library", 512),
            ("shared-lanes+exit", None), ("local+exit", 128), ("local+exit", 512),
            ("shared+exit+tables", 128), ("shared+exit+tables", 256)],
-    "K6": [("parent", 128), ("device", 128), ("library", 128), ("none+exit", 128),
-           ("home-shared+exit", 128), ("home-lane", 128), ("home-lane-shared", 128),
-           ("home-no-tests", 128)],
+    "K6": [("parent", None), ("library", None), ("device+exit", None), ("none+exit", None),
+           ("shared-lanes+exit", None), ("home-r4-free", None), ("home-r2", None),
+           ("home-r1", None), ("home-ldg", None), ("home-ldg-r2", None), ("home-ldg-r8", None),
+           ("home-strip-r2", None), ("home-no-tests", None)],
 }
 ENTRIES = ("sspt_schedule_pack", "sspt_schedule_pack_dual", "sspt_schedule_pack_home")
 
@@ -226,8 +275,9 @@ def patched(src: str, patches: list) -> str:
     return src
 
 
-def build_copies(parent: Path | None) -> dict:
-    """{copy: (ctypes library, ptxas rows)}, all nvcc processes at once."""
+def build_copies(parent: Path | None, names=None) -> dict:
+    """{copy: (ctypes library, ptxas rows)} of ``names`` (default all),
+    all nvcc processes at once."""
     nvcc = build.nvcc_path()
     if nvcc is None:
         raise RuntimeError("nvcc not found")
@@ -235,6 +285,8 @@ def build_copies(parent: Path | None) -> dict:
     src = build.SRC_DIR / "schedule_pack.cu"
     jobs = {}
     for name, copy in COPIES.items():
+        if names is not None and name not in names:
+            continue
         path = src
         if copy.patches:
             path = OUT_DIR / f"{name.replace('+', '_')}.cu"
@@ -242,11 +294,13 @@ def build_copies(parent: Path | None) -> dict:
         jobs[name] = path
     if parent is not None:
         jobs["parent"] = parent / "unitysspathtracingurp_tpu_torch" / "csrc" / "schedule_pack.cu"
+    # The copies include the package's shared headers.
+    include = ["-I", str(build.SRC_DIR)]
     procs = {}
     for name, path in jobs.items():
         so = OUT_DIR / f"{name.replace('+', '_')}.so"
         procs[name] = (so, subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(so), str(path)],
+            [nvcc, *build.NVCC_FLAGS, *include, "-shared", "-o", str(so), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, p) in procs.items():
@@ -265,14 +319,15 @@ def build_copies(parent: Path | None) -> dict:
 @contextlib.contextmanager
 def use(lib, copy: Copy, forced: int | None, dual_table_words: int = 0):
     """The wrappers launch ``lib``'s kernels with ``forced`` threads a
-    block (None: the budget's choice; K6 always 128) and the shared
+    block (None: the budget's choice; K6 the copy's block) and the shared
     memory ``copy`` needs: staging only where it stages in shared memory,
-    K4's combo tables where it stages those."""
+    K4's combo tables where it stages those, K6 what its block holds."""
     real = build.load_library, fs.pack_budget
 
     def budget(table_words, k, n_fields, threads=None):
-        if threads is not None:  # K6
-            return real[1](table_words, k, 3 if copy.home_staged else n_fields, threads=threads)
+        if threads is not None:  # K6: the copy's block
+            words = table_words * copy.home_table + STRIP_WORDS * copy.home_strip
+            return real[1](words, k, 3 * copy.home_stage, threads=copy.home_threads)
         extra = dual_table_words if copy.tables and n_fields == 4 else 0
         return real[1](table_words + extra, k, n_fields if copy.staged else 0, threads=forced)
 
@@ -328,7 +383,7 @@ def run_set(label, kernel, wrapper, ref_fn, args, kw, libs, results, dual_table_
         if copy not in libs:
             continue
         lib, _ = libs[copy]
-        spec = COPIES.get(copy, Copy([], staged=False))
+        spec = PARENT if copy == "parent" else COPIES[copy]
 
         def fn(lib=lib, spec=spec, threads=threads):
             with use(lib, spec, threads, dual_table_words):
@@ -378,8 +433,11 @@ def main() -> int:
                         help="where the JSON of every number goes")
     parser.add_argument("--kernels", default="K1,K4,K6",
                         help="the kernels to time, comma-separated (default all)")
+    parser.add_argument("--copies", default=None,
+                        help="the copies to build and time, comma-separated (default all)")
     opts = parser.parse_args()
     only = set(opts.kernels.split(","))
+    names = None if opts.copies is None else set(opts.copies.split(","))
     if not torch.cuda.is_available():
         print("pack_ablation: no CUDA device", file=sys.stderr)
         return 2
@@ -387,7 +445,7 @@ def main() -> int:
     card = cs.card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    libs = build_copies(opts.parent)
+    libs = build_copies(opts.parent, names)
     print(f"built {len(libs)} copies of schedule_pack.cu in {time.perf_counter() - t0:.1f} s")
     for name, (_, rows) in libs.items():
         print(f"ptxas {name}: " + "; ".join(

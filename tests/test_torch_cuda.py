@@ -292,14 +292,11 @@ def test_kernel_rejects_cpu_inputs_on_cuda_call(case, dual_case):
                                dual_case[5].tile_table.cpu(), d_args[9], **r_kw)
 
 
-@pytest.fixture(scope="module")
-def home_case():
-    """BoxScene bounce-0 reflection rays on the screen-ordered 256x256
-    grid (tilted as tests/test_fused_schedule.py:36-61), for K6."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    dev = torch.device("cuda", 0)
-    h = w = 256
+def _home_inputs(h, w, dev, full=False):
+    """BoxScene bounce-0 reflection rays on the screen-ordered h x w grid
+    (tilted as tests/test_fused_schedule.py:36-61), for K6; ``full``:
+    every lane a back ray, 0.1 steps, 40 steps, so most packs fill
+    after a routed prefix."""
     cam = fixtures.box_scene_camera(h, w, device=dev)
     gb = fixtures.rasterize_gbuffers(scene.build_box_scene(), cam, h, w, device=dev)
     tiles = build_depth_tiles(gb.depth, cam.near, cam.far)
@@ -314,24 +311,66 @@ def home_case():
     d = (d / d.norm(dim=-1, keepdim=True)).reshape(-1, 3)
     n = h * w
     large = 0.4 + 19.6 * linear_eye_depth(gb.depth, cam.near, cam.far).reshape(n) * 0.001
+    back = (d * -view.reshape(n, 3)).sum(-1) > 0.0
+    cfg, s_max = PTConfig(), 24
+    if full:
+        back, large = torch.ones_like(back), torch.full_like(large, 0.1)
+        cfg = dataclasses.replace(cfg, small_step_size=0.1, medium_step_size=0.1)
+        s_max = 40
     args = ((pos + nrm * 1e-4).reshape(n, 3), d, torch.zeros(n, device=dev), large,
-            (gb.depth != 0.0).reshape(n), (d * -view.reshape(n, 3)).sum(-1) > 0.0,
-            tiles.mini_table, build_home_strips(tiles, h, w), fs.schedule_scalars(cam))
-    kw = dict(fs.march_kwargs(PTConfig(), tiles, 24), home_shape=(h, w))
-    r_kw = dict(gh=h, gw=w, pairs_x=tiles.pairs_x, n_rounds=4, chain=4, s_max=24)
+            (gb.depth != 0.0).reshape(n), back, tiles.mini_table, build_home_strips(tiles, h, w),
+            fs.schedule_scalars(cam))
+    kw = dict(fs.march_kwargs(cfg, tiles, s_max), home_shape=(h, w))
+    r_kw = dict(gh=h, gw=w, pairs_x=tiles.pairs_x, n_rounds=4, chain=4, s_max=s_max)
     return tiles, args, kw, r_kw
 
 
-def test_schedule_pack_home_kernel_bit_exact(home_case):
-    _, args, kw, _ = home_case
+@pytest.fixture(scope="module")
+def home_case():
+    """The 256x256 K6 inputs of ``_home_inputs``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _home_inputs(256, 256, torch.device("cuda", 0))
+
+
+# K6's cases: (h, w, k, full). 256x256 at K = 16 is the frame of
+# ``home_case``; one 8x128 lane block clamps its strip on every side;
+# 136x384 has 17 x 3 lane blocks (its rows are not a multiple of 16, so
+# its minitile rows end mid-tile); K = 2 holds fewer slots than the 4
+# home slots; "full" fills most packs after a routed prefix.
+HOME_CASES = [(256, 256, 16, False), (8, 128, 16, False), (8, 128, 2, False),
+              (136, 384, 16, False), (136, 384, 2, False), (256, 256, 2, True),
+              (136, 384, 16, True)]
+
+
+@pytest.mark.parametrize("hcase", HOME_CASES, ids=lambda c: f"{c[0]}x{c[1]}-k{c[2]}"
+                         + ("-full" if c[3] else ""))
+def test_schedule_pack_home_kernel_bit_exact(hcase):
+    """K6 against its plain version on all 5 outputs, then R1 from its
+    state against R1's plain version, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, w, k, full = hcase
+    tiles, args, kw, r_kw = _home_inputs(h, w, torch.device("cuda", 0), full)
+    kw["k"] = k
     before = LAUNCHES["schedule_pack_home"]
     got = fs.schedule_pack_home(*args, **kw)
     ref = fs.schedule_pack_home_ref(*args, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["schedule_pack_home"] == before + 1
-    assert ref[4][0].mean() > 0.05 and (ref[3] > 0).float().mean() > 0.05
+    home = ref[4]
+    routed = (home[0] > 0.5) | (home[10] >= 0.0)
+    assert routed.float().mean() > 0.02 and (ref[3] > 0).float().mean() > 0.02
+    if full:  # packs that filled after a routed prefix
+        assert (routed & (ref[3] == k)).float().mean() > 0.05
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert a.shape == b.shape and torch.equal(a, b)
+    state = torch.cat([torch.zeros_like(home[:1]), home])
+    r_args = (*ref[:4], args[0], args[1], args[5], tiles.pair_table, args[8])
+    res = ph.resolve_rounds(*r_args, state=state, **r_kw)
+    res_ref = ph.resolve_rounds_ref(*r_args, state=state, **r_kw)
+    torch.cuda.synchronize()
+    assert torch.equal(res, res_ref)
 
 
 def test_resolve_rounds_state_in_bit_exact(home_case):
@@ -382,23 +421,32 @@ def test_broadcast_table_select_kernel_bit_exact(n_chunks):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("k", [4, 16])
+@pytest.mark.parametrize("s,n", [(7, 50001), (24, 50000), (24, 50001), (64, 50001)])
 @pytest.mark.parametrize("n_fields", [3, 4])
-def test_pack_by_slot_kernel_bit_exact(n_fields):
+def test_pack_by_slot_kernel_bit_exact(n_fields, s, n, k):
+    """K3 at S = 7 (not a multiple of the 4 rows loaded together), 24 and
+    64, N a multiple of 4 (16-byte row stores) and not, K = 4 and 16:
+    lanes 0-99 hold no flag and lanes 100-199 every flag; -0.0 fields
+    pack as +0.0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    g = torch.Generator().manual_seed(n_fields)
-    s, n, k = 24, 50001, 16
-    cand = (torch.rand(s, n, generator=g) < torch.linspace(0.0, 0.9, n)).cuda()
+    g = torch.Generator().manual_seed(n_fields * 1000 + s + k)
+    cand = torch.rand(s, n, generator=g) < torch.linspace(0.0, 0.9, n)
+    cand[:, :100], cand[:, 100:200] = False, True
+    cand = cand.cuda()
     fields = [torch.randn(s, n, generator=g).cuda() for _ in range(n_fields)]
-    fields[0][torch.rand(s, n, generator=g).cuda() < 0.1] = -0.0
+    for f in fields:
+        f[torch.rand(s, n, generator=g).cuda() < 0.1] = -0.0
     before = LAUNCHES["pack_by_slot"]
     got = pg.pack_by_slot(cand, fields, k)
     ref = pg.pack_by_slot_ref(cand, fields, k)
     torch.cuda.synchronize()
     assert LAUNCHES["pack_by_slot"] == before + 1
-    assert (ref[1] == k).any() and torch.equal(got[1], ref[1])
+    assert (ref[1][100:200] == min(s, k)).all() and (ref[1][:100] == 0).all()
+    assert torch.equal(got[1], ref[1])
     for a, b in zip(got[0], ref[0]):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert a.shape == (k, n) and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("n_fields", [3, 4])

@@ -419,20 +419,38 @@ def test_cuda_tensor_without_kernel_raises(monkeypatch, kernel):
         build.load_library.cache_clear()
 
 
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.uint8])
+def test_flag_bytes_views_bool_flags(dtype):
+    """The K3 / K6 wrappers hand the kernels a flag tensor's own bytes
+    when it is bool (a view: no copy), and a uint8 conversion of any
+    other dtype; the values are the flags either way."""
+    from unitysspathtracingurp_tpu_torch.kernels.build import flag_bytes
+
+    flags = (torch.arange(24).reshape(4, 6) % 3 == 0).to(dtype)
+    got = flag_bytes(flags)
+    assert got.dtype == torch.uint8 and got.is_contiguous()
+    assert torch.equal(got, (flags != 0).to(torch.uint8))
+    assert (got.data_ptr() == flags.data_ptr()) == (dtype in (torch.bool, torch.uint8))
+    assert torch.equal(flag_bytes(flags.t()), (flags.t() != 0).to(torch.uint8))
+
+
 def test_pack_budget_bytes_and_block_size():
     """K1 / K4's shared memory a block: the minitile table (K4: none),
     then 3 (K4: 4) x K = 16 staged f32 slots a thread, at the block size
-    that keeps the most threads resident; K6's 128-thread block holds the
-    table and its strip and stages nothing; a table too large for a block
-    raises. Minitile words: 256^2 has 8 x 16 minitiles (one 128-word
-    chunk), 1080p 60 x 68 (32 chunks), 3840x2160 120 x 135 (127 chunks)."""
-    from unitysspathtracingurp_tpu_torch.ops.fused_schedule import pack_budget
+    that keeps the most threads resident; K6's block of HOME_THREADS (512)
+    holds the table and K1's staging at every size; a table too large for
+    a block raises. Minitile words: 256^2 has 8 x 16 minitiles (one
+    128-word chunk), 1080p 60 x 68 (32 chunks), 3840x2160 120 x 135 (127
+    chunks)."""
+    from unitysspathtracingurp_tpu_torch.ops.fused_schedule import HOME_THREADS, pack_budget
 
     for words, threads in ((128, 128), (4096, 512), (16256, 256)):
         assert pack_budget(words, 16, 3) == (threads, (words + 3 * 16 * threads) * 4)
     assert pack_budget(0, 16, 4) == (128, 4 * 16 * 128 * 4)
-    home = 4096 + 3 * 6 * 128  # K6: the table and an 18 x 128-word strip
-    assert pack_budget(home, 16, 0, threads=128) == (128, home * 4)
+    assert HOME_THREADS == 512
+    for words in (128, 4096, 16256):
+        assert pack_budget(words, 16, 3, threads=HOME_THREADS) == (
+            512, (words + 3 * 16 * 512) * 4)
     with pytest.raises(RuntimeError, match="shared memory"):
         pack_budget(58 * 1024, 16, 3)
 

@@ -20,14 +20,25 @@
 // fields, per lane the field values of its first K candidate steps as
 // rows of (K, N) tables, zeros past the lane's count, and the count
 // clamped to K. Its plain version is pack_by_slot_ref. On the TPU it was
-// a manual prefix sum over the step rows and K masked sums; here one
-// thread per lane keeps the running count in a register over the S rows
-// (each row read coalesced, lane-major) and stores slot j to row j. Each
-// slot holds exactly one field value, so a store reproduces the masked
-// sum, with + 0.0f turning -0.0 into the sum's +0.0. Bound: bytes, the
-// (S, N) flags (1 B) and fields (4 B each) read once and the (K, N)
-// tables plus the count written once: ~1.3 GB at 1080p with 3 fields,
-// ~0.4 ms.
+// a manual prefix sum over the step rows and K masked sums. Each slot
+// holds exactly one field value, so a store reproduces the masked sum,
+// with + 0.0f turning -0.0 into the sum's +0.0. Bound: bytes, the (S, N)
+// flags (1 B) and fields (4 B each) read once and the (K, N) tables plus
+// the count written once: ~1.05 GB at 1080p with 3 fields, 0.314 ms.
+// Design: one thread a lane keeps the running count in a register over
+// the S rows. It loads four rows' flags and fields at a time, whatever
+// the flags (each row read coalesced, lane-major; several rows' loads in
+// flight), then stages the flagged values in shared memory laid out
+// [field][K][blockDim], thread index fastest, zeroes its slots past the
+// count, and the warp writes its lanes' rows as 16-byte stores
+// (write_rows). The earlier design, loads under the flag and each slot
+// stored to row `run` at once, took 1.30 ms (scripts/gather_ablation.py,
+// H100 80GB HBM3 at 700 W, the 1080p test shape, 3 fields): its
+// scattered stores cost 0.64 ms (one warp store touched many rows and
+// partial sectors) and its branchy loads 0.16 ms. 256-thread blocks
+// (48 or 64 KB of staging, 3-4 blocks an SM) were within 2% of 128 and
+// 512; four lanes a thread with 16-byte loads lost 30% (fewer warps in
+// flight at the same staging a lane).
 //
 // K5 (extract_chain_kernel) replaces pallas_gather.py extract_chain
 // (:205, pallas_call :241): one resolve round's chain links, out[f][j, n]
@@ -57,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "write_rows.cuh"
+
 namespace {
 
 __global__ void broadcast_table_select_kernel(const uint32_t* __restrict__ table,
@@ -79,31 +92,47 @@ struct Fields {
   float* out[4];
 };
 
-__global__ void pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f,
-                                    int32_t* __restrict__ count, int s, int n, int k, int nf) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_ROWS = 4;  // rows whose loads are in flight together
+
+// Dynamic shared memory: the staging, NF x k x blockDim f32.
+template <int NF>
+__global__ void __launch_bounds__(PACK_THREADS)
+pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f, int32_t* __restrict__ count,
+                    int s, int n, int k) {
+  extern __shared__ float stage[];
+  const int t = blockDim.x;
+  const int lane = blockIdx.x * t + threadIdx.x;
+  float* col = stage + threadIdx.x;
   int run = 0;
-  for (int r = 0; r < s; ++r) {
-    const size_t o = static_cast<size_t>(r) * n + lane;
-    if (cand[o] == 0) continue;
-    if (run < k) {
-      const size_t d = static_cast<size_t>(run) * n + lane;
+  if (lane < n) {
+    for (int r = 0; r < s; r += PACK_ROWS) {
+      uint8_t c[PACK_ROWS];
+      float v[NF][PACK_ROWS];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (q < nf) f.out[q][d] = f.in[q][o] + 0.0f;
+      for (int u = 0; u < PACK_ROWS; ++u) {
+        const size_t o = static_cast<size_t>(min(r + u, s - 1)) * n + lane;
+        c[u] = r + u < s ? __ldg(cand + o) : 0;
+#pragma unroll
+        for (int q = 0; q < NF; ++q) v[q][u] = __ldg(f.in[q] + o);
+      }
+#pragma unroll
+      for (int u = 0; u < PACK_ROWS; ++u) {
+        if (c[u] != 0 && run < k) {
+#pragma unroll
+          for (int q = 0; q < NF; ++q) col[(q * k + run) * t] = v[q][u] + 0.0f;
+        }
+        run += c[u] != 0;
       }
     }
-    ++run;
   }
-  for (int j = run; j < k; ++j) {
-    const size_t d = static_cast<size_t>(j) * n + lane;
+  const int cnt = min(run, k);
+  for (int j = cnt; j < k; ++j) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (q < nf) f.out[q][d] = 0.0f;
-    }
+    for (int q = 0; q < NF; ++q) col[(q * k + j) * t] = 0.0f;
   }
-  count[lane] = min(run, k);
+  if (lane < n) count[lane] = cnt;
+  write_rows<NF>(stage, f.out, n, k, lane - (threadIdx.x & 31));
 }
 
 __global__ void extract_chain_kernel(const int32_t* __restrict__ ptr, Fields f, int n, int chain,
@@ -168,10 +197,23 @@ extern "C" int sspt_pack_by_slot(const void* cand, const void* in0, const void* 
          static_cast<const float*>(in2), static_cast<const float*>(in3)},
         {static_cast<float*>(out0), static_cast<float*>(out1), static_cast<float*>(out2),
          static_cast<float*>(out3)}};
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    pack_by_slot_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(cand), f, static_cast<int32_t*>(count), s, n, k, nf);
+    const void* kernel = nf == 3 ? reinterpret_cast<const void*>(pack_by_slot_kernel<3>)
+                                 : reinterpret_cast<const void*>(pack_by_slot_kernel<4>);
+    const int smem = nf * k * PACK_THREADS * static_cast<int>(sizeof(float));
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const int blocks = (n + PACK_THREADS - 1) / PACK_THREADS;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const uint8_t* c = static_cast<const uint8_t*>(cand);
+    int32_t* cnt = static_cast<int32_t*>(count);
+    if (nf == 3) {
+      pack_by_slot_kernel<3><<<blocks, PACK_THREADS, smem, st>>>(c, f, cnt, s, n, k);
+    } else {
+      pack_by_slot_kernel<4><<<blocks, PACK_THREADS, smem, st>>>(c, f, cnt, s, n, k);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,13 +33,15 @@
 // and lhd from their q40 codes. A prefix hit sets n_cand to 0 (the packed
 // suffix stays in the slot rows); failed tests carry prev_diff and
 // prev_sidx into the (11, N) resolve-state init that R1 starts from.
-// Design: one 128-thread block per 8x128-px lane block, so the block's
-// (by, bx) is the strip index; each thread marches its column's 8 lanes
-// in turn. The block's 18 x 128-word strip (9 KB) sits in shared memory
-// beside K1's minitile table; the home slots' six fields stay in
-// registers (unrolled selects, no local arrays). Bound: K1's bytes plus
-// the strips once (18 x 128 x 4 B per lane block, 18.7 MB at 1080p) plus
-// the (11, N) f32 init, ~0.52 GB at 1080p, ~0.16 ms.
+// Design: K1's, one thread a lane with its slots staged on chip and
+// written as whole rows (below); a block takes HOME_BLOCK_ROWS screen
+// rows of one 8x128-px lane block, so its (by, bx) is the strip index
+// and each warp's 32 lanes are contiguous on screen and in memory. The
+// routed candidates' codes stay in registers (unrolled selects, no local
+// arrays); the few strip words the tests read come from device memory
+// through the read-only cache. Bound: K1's bytes plus the strips once
+// (18 x 128 x 4 B per lane block, 18.7 MB at 1080p) plus the (11, N) f32
+// init, ~0.59 GB at 1080p, ~0.175 ms.
 //
 // Per lane: rebuild the s_max-step march schedule (6 small steps, 12
 // medium, then the per-lane large step; x1.1 step and +25% thickness
@@ -94,20 +96,18 @@
 // budget (ops/fused_schedule.py pack_budget) picks the block size that
 // keeps the most threads resident; the kernels are built for at most 512
 // threads a block and two blocks an SM (__launch_bounds__(512, 2): at
-// most 64 registers a thread). ptxas: K1 48 registers, K4 55, K6 70, no
+// most 64 registers a thread). ptxas: K1 48 registers, K4 55, no
 // spills. At 1080p K1 runs 512-thread blocks with 112 KB each, two an SM
 // (1,024 threads, half the SM's warps; its registers would hold 1,365);
 // K4 128-thread blocks with 32 KB, six an SM (768 threads; registers:
 // ~1,150): shared memory, not registers, limits both.
 // K4 reads its 96 KB of dual tables through __ldg: staging one combo's
 // 32 KB in shared memory was slower at every block size (occupancy).
-// K6 stores each slot to device memory at the step that finds it, as the
-// earlier design did (staged, its 128-thread blocks hold 49 KB of shared
-// memory at 1080p, half as many threads an SM, and it ran slower), and
-// takes the early exit. The template flag HOME picks the store path.
+// K6 stages as K1 does, in blocks of HOME_BLOCK_ROWS x 128 threads with
+// the table and the staging only (the strip stays in device memory).
 // scripts/pack_ablation.py builds patched copies of this file (the
-// earlier stores, no exit, no slots, local arrays, staged tables) to
-// measure the split and these choices.
+// earlier stores, no exit, no slots, local arrays, staged tables, K6's
+// block shapes) to measure the split and these choices.
 //
 // Numerics: built with --fmad=false, so every a*b+c rounds twice, as
 // torch's elementwise ops do; divisions are IEEE (no fast math), cx / w
@@ -117,6 +117,8 @@
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include "write_rows.cuh"
 
 namespace {
 
@@ -198,52 +200,16 @@ struct HomeArgs {
   float* home_out;  // (11, N) resolve-state init
 };
 
-// K1 and K4: the warp writes its 32 lanes' staged rows. Lane L
-// copies threads 4 (L % 8) .. 4 (L % 8) + 3 of rows j = L / 8, L / 8 + 4,
-// ... of each field: one 16-byte shared load (8 lanes read 128
-// contiguous bytes: no bank conflict) and one 16-byte store (8 lanes
-// write 128 contiguous bytes of one row). Scalar stores where the row
-// is not 16-byte aligned (n % 4 != 0) and at the last lane. Each lane
-// has zeroed its own slots past its count. `stage` is the block's
-// staging, `lane_base` the block's first lane.
-template <int NF>
-__device__ __forceinline__ void write_rows(const float* stage, float* const* outs, int n,
-                                           int k, int lane_base) {
-  __syncwarp();  // the warp's lanes have staged every slot
-  const int wl = threadIdx.x & 31;
-  const int src = (threadIdx.x & ~31) + 4 * (wl & 7);
-  const int t = blockDim.x;
-  const int lane0 = lane_base + src;
-  const bool vec = (n & 3) == 0 && lane0 + 3 < n;
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    for (int j = wl >> 3; j < k; j += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(stage + (f * k + j) * t + src);
-      float* dst = outs[f] + static_cast<size_t>(j) * n + lane0;
-      if (vec) {
-        *reinterpret_cast<float4*>(dst) = v;
-      } else {
-        if (lane0 < n) dst[0] = v.x;
-        if (lane0 + 1 < n) dst[1] = v.y;
-        if (lane0 + 2 < n) dst[2] = v.z;
-        if (lane0 + 3 < n) dst[3] = v.w;
-      }
-    }
-  }
-}
-
 // One lane: the step loop, the pack, and (HOME) the prefix routing and
-// the exact tests of the routed candidates. K1 and K4 (!HOME) stage the
-// slots in the thread's column `stage_col` of the block's staging,
-// [field][K][blockDim], and their kernel writes the rows after the loop;
-// K6 (HOME) stores each slot to device memory at the step that finds it.
+// the exact tests of the routed candidates. The slots go to the thread's
+// column `stage_col` of the block's staging, [field][K][blockDim]; the
+// kernel writes the rows after the loop (write_rows).
 template <bool DUAL, bool HOME>
 __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
                                           const uint32_t* mini_table, const MarchParams& p,
                                           const DualArgs& dual, const HomeArgs& home,
                                           float* stage_col) {
   constexpr int NF = DUAL ? 4 : 3;
-  constexpr bool STAGED = !HOME;
   const float* m = c_scal;
   const float zz = c_scal[16], zw = c_scal[17];
   const int n = p.n, k = p.k;
@@ -256,27 +222,26 @@ __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
   const bool backray = DUAL ? false : a.is_back[lane] != 0;
   const bool searchlane = DUAL ? dual.search[lane] != 0 : false;
   const int combo_off = DUAL ? dual.combo[lane] * dual.combo_words : 0;
-  float* const outs[4] = {a.pk_cum, a.pk_scode, a.pk_hist, dual.pk_step};
-  // Field f of slot j: staged on chip, or in the (K, N) output.
+  // Field f of slot j, staged on chip.
   auto slot = [&](int f, int j) -> float& {
-    if constexpr (STAGED) {
-      return stage_col[(f * k + j) * static_cast<int>(blockDim.x)];
-    } else {
-      return outs[f][static_cast<size_t>(j) * n + lane];
-    }
+    return stage_col[(f * k + j) * static_cast<int>(blockDim.x)];
   };
 
-  // Home prefix state: the routed candidates' (cum, th, lcum, lhd, pidx,
-  // step index) as captured before the step's post-test update.
+  // Home prefix state, per routed candidate as captured before the
+  // step's post-test update: cum, the q40 code of th, the hist word (the
+  // q40 codes of lcum and lhd, exact in f32, as a packed slot holds them)
+  // and the step index i - 1 | (pidx + 1) << 16. The tests read only
+  // these codes, so four words hold what six floats did.
   const int hp = min(HOME_SLOTS, k);
   const int y0 = home.by * 8, x0 = home.bx * 128;
   bool prefix = true;
   int run_home = 0;
-  float hs_cum[HOME_SLOTS], hs_th[HOME_SLOTS], hs_lcum[HOME_SLOTS], hs_lhd[HOME_SLOTS];
-  float hs_pidx[HOME_SLOTS], hs_sidx[HOME_SLOTS];
+  float hs_cum[HOME_SLOTS], hs_thq[HOME_SLOTS], hs_hist[HOME_SLOTS];
+  int hs_steps[HOME_SLOTS];
 #pragma unroll
   for (int j = 0; j < HOME_SLOTS; ++j) {
-    hs_cum[j] = hs_th[j] = hs_lcum[j] = hs_lhd[j] = hs_pidx[j] = hs_sidx[j] = 0.0f;
+    hs_cum[j] = hs_thq[j] = hs_hist[j] = 0.0f;
+    hs_steps[j] = 0;
   }
 
   float last_u, last_v, raw0;
@@ -331,15 +296,16 @@ __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
       const bool route = prefix && run_home < hp && iy >= y0 - 7 && iy <= y0 + 14 &&
                          ix >= x0 - 31 && ix <= x0 + 158;
       if (route) {
+        const float thq = q40(th, p.th_cap);
+        const float hist = q40(lcum, 4095.0f) * 4096.0f + q40(lhd, 4095.0f);
+        const int steps = (i - 1) | (static_cast<int>(pidx + 1.0f) << 16);
 #pragma unroll
         for (int j = 0; j < HOME_SLOTS; ++j) {
           if (j == run_home) {
             hs_cum[j] = cum;
-            hs_th[j] = th;
-            hs_lcum[j] = lcum;
-            hs_lhd[j] = lhd;
-            hs_pidx[j] = pidx;
-            hs_sidx[j] = static_cast<float>(i - 1);
+            hs_thq[j] = thq;
+            hs_hist[j] = hist;
+            hs_steps[j] = steps;
           }
         }
         ++run_home;
@@ -373,7 +339,7 @@ __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
     marching = marching && !exit_now;
   }
   const int cnt = min(run, k);
-  // Zeros past the count (K1 and K4: then write_rows copies the rows).
+  // Zeros past the count; the kernel then copies the rows (write_rows).
   for (int j = cnt; j < k; ++j) {
 #pragma unroll
     for (int f = 0; f < NF; ++f) slot(f, j) = 0.0f;
@@ -392,7 +358,8 @@ __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
   for (int j = 0; j < HOME_SLOTS; ++j) {
     if (j >= run_home || hitf) continue;
     const float cum_j = hs_cum[j];
-    const float th_q = q40(hs_th[j], p.th_cap) * 0.025f;
+    const float th_q = hs_thq[j] * 0.025f;
+    const float sidx = static_cast<float>(hs_steps[j] & 0xFFFF);
     float u2, v2, raw2;
     project(m, ox + cum_j * dx, oy + cum_j * dy, oz + cum_j * dz, u2, v2, raw2);
     const float hitd2 = 1.0f / (raw2 * zz + zw);
@@ -402,26 +369,27 @@ __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
     // only mirrors the reference's.
     const int srow = min(max(((iy2 >> 3) - (home.by - 1)) * HOME_PAIRS +
                              ((ix2 >> 5) - (home.bx * 4 - 1)), 0), HOME_ROWS - 1);
-    const uint32_t word = home.strip[srow * 128 + (((iy2 & 7) << 4) | (ix2 & 15))];
+    const uint32_t word = __ldg(home.strip + srow * 128 + (((iy2 & 7) << 4) | (ix2 & 15)));
     const uint32_t bits16 = ((ix2 >> 4) & 1) ? (word >> 16) : (word & 0xFFFFu);
     const float d_raw = half_bits_to_float(bits16);  // exact, subnormals too
     const bool is_sky = bits16 == 0u;
     const float dd = 1.0f / (d_raw * zz + zw) - hitd2;
     const float halv = ceilf(log2f(fmaxf(-dd / fmaxf(th_q, 1e-6f), 1.0f)));
-    const bool budget_ok = hs_sidx[j] + 1.0f + halv <= static_cast<float>(p.s_max);
+    const bool budget_ok = sidx + 1.0f + halv <= static_cast<float>(p.s_max);
     if ((dd <= 0.0f) && !is_sky && ((dd >= -th_q) || (backray && budget_ok))) {
       hitf = true;
       h_cum = cum_j;
       h_diff = dd;
       h_th = th_q;
       h_hitd = hitd2;
-      h_lcum = q40(hs_lcum[j], 4095.0f) * 0.025f;
-      h_lhd = q40(hs_lhd[j], 4095.0f) * 0.025f;
-      h_pidx = hs_pidx[j];
+      const int hist_j = static_cast<int>(hs_hist[j]);
+      h_lcum = static_cast<float>(hist_j >> 12) * 0.025f;
+      h_lhd = static_cast<float>(hist_j & 4095) * 0.025f;
+      h_pidx = static_cast<float>(hs_steps[j] >> 16) - 1.0f;
       h_ixy = static_cast<float>(iy2 * p.gw + ix2);
     } else {
       pdiff = dd;
-      psidx = hs_sidx[j];
+      psidx = sidx;
     }
   }
   a.n_cand[lane] = hitf ? 0 : cnt;
@@ -460,30 +428,39 @@ schedule_pack_kernel(LaneArgs a, const uint32_t* __restrict__ mini_table, DualAr
                            stage + threadIdx.x);
   }
   float* const outs[4] = {a.pk_cum, a.pk_scode, a.pk_hist, dual.pk_step};
-  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, blockIdx.x * blockDim.x);
+  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));
 }
 
-// Block (bx, by) marches lane block (by, bx): 128 threads, one column
-// each, its 8 rows in turn. Dynamic shared memory: the minitile table,
-// then the strip.
-__global__ void schedule_pack_home_kernel(LaneArgs a, const uint32_t* __restrict__ mini_table,
-                                          const uint32_t* __restrict__ strips,
-                                          float* __restrict__ home_out, MarchParams p,
-                                          int lane_w) {
-  extern __shared__ uint32_t s_mini[];
-  uint32_t* s_strip = s_mini + p.n_mini_words;
-  const int by = blockIdx.y, bx = blockIdx.x;
-  const uint32_t* strip = strips + (static_cast<size_t>(by) * gridDim.x + bx) * HOME_ROWS * 128;
-  for (int i = threadIdx.x; i < p.n_mini_words; i += blockDim.x) s_mini[i] = mini_table[i];
-  for (int i = threadIdx.x; i < HOME_ROWS * 128; i += blockDim.x) s_strip[i] = strip[i];
+// K6's block: HOME_BLOCK_ROWS screen rows of one 8 x 128-px lane block,
+// one thread a lane, at most 64 registers a thread for HOME_MIN_BLOCKS
+// blocks an SM.
+constexpr int HOME_BLOCK_ROWS = 4;
+constexpr int HOME_MIN_BLOCKS = 2;
+
+// Block (bx, y) marches screen rows y * HOME_BLOCK_ROWS .. + HOME_BLOCK_ROWS
+// - 1, columns bx * 128 .. + 127: thread t takes row t / 128, column
+// t % 128, so each warp's 32 lanes are contiguous. Dynamic shared memory:
+// the minitile table, then the slot staging (3 x K x blockDim f32). The
+// home strip of the block's lane block is read from device memory (at
+// most HOME_SLOTS words a lane, after the loop).
+__global__ void __launch_bounds__(HOME_BLOCK_ROWS * 128, HOME_MIN_BLOCKS)
+schedule_pack_home_kernel(LaneArgs a, const uint32_t* __restrict__ mini_table,
+                          const uint32_t* __restrict__ strips, float* __restrict__ home_out,
+                          MarchParams p, int lane_w) {
+  extern __shared__ uint32_t s_dyn[];
+  for (int i = threadIdx.x; i < p.n_mini_words; i += blockDim.x) s_dyn[i] = mini_table[i];
   __syncthreads();
 
+  const int row = blockIdx.y * HOME_BLOCK_ROWS + (threadIdx.x >> 7);
+  const int by = row >> 3, bx = blockIdx.x;
+  const int lane = row * lane_w + bx * 128 + (threadIdx.x & 127);
   const DualArgs none = {nullptr, nullptr, nullptr, nullptr, 0};
-  const HomeArgs home = {s_strip, by, bx, home_out};
-  for (int r = 0; r < 8; ++r) {
-    const int lane_base = (by * 8 + r) * lane_w + bx * 128;
-    pack_lane<false, true>(lane_base + threadIdx.x, a, s_mini, p, none, home, nullptr);
-  }
+  const HomeArgs home = {strips + (static_cast<size_t>(by) * gridDim.x + bx) * HOME_ROWS * 128,
+                         by, bx, home_out};
+  float* stage = reinterpret_cast<float*>(s_dyn + p.n_mini_words);
+  pack_lane<false, true>(lane, a, s_dyn, p, none, home, stage + threadIdx.x);
+  float* const outs[3] = {a.pk_cum, a.pk_scode, a.pk_hist};
+  write_rows<3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));
 }
 
 // The kernel's dynamic shared memory above 48 KB, and the scalars into
@@ -573,7 +550,9 @@ extern "C" int sspt_schedule_pack_dual(
 
 // Lanes are the screen-ordered (h, w) pixel grid, h % 8 == 0 and
 // w % 128 == 0 (the wrapper checks); strips is (h/8, w/128, 18, 128).
-// `smem` (dynamic shared bytes a block) comes from the wrapper's budget.
+// `smem` (dynamic shared bytes a block) comes from the wrapper's budget
+// for HOME_BLOCK_ROWS x 128 threads: less than the table and the staging
+// is refused.
 // The scalars go to the library's one constant copy (c_scal) on `stream`
 // before the launch: call the entry points from one stream at a time.
 extern "C" int sspt_schedule_pack_home(
@@ -584,6 +563,8 @@ extern "C" int sspt_schedule_pack_home(
     int gw, int minis_x, int n_mini_words, int s_max, int k, int max_small, int max_medium,
     float small_step, float medium_step, float thickness, float th_inc,
     float step_growth, float th_cap, float texel_x, float texel_y, int smem, void* stream) {
+  constexpr int threads = HOME_BLOCK_ROWS * 128;
+  if (smem < (n_mini_words + 3 * k * threads) * 4) return static_cast<int>(cudaErrorInvalidValue);
   const int e = prepare(reinterpret_cast<const void*>(schedule_pack_home_kernel), smem, scalars,
                         stream);
   if (e != 0) return e;
@@ -597,8 +578,8 @@ extern "C" int sspt_schedule_pack_home(
     const MarchParams p = {h * w, gh, gw, minis_x, n_mini_words, s_max, k, max_small, max_medium,
                            small_step, medium_step, thickness, th_inc, step_growth, th_cap,
                            texel_x, texel_y, static_cast<float>(gh), static_cast<float>(gw)};
-    const dim3 grid(w / 128, h / 8);
-    schedule_pack_home_kernel<<<grid, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(w / 128, h / HOME_BLOCK_ROWS);
+    schedule_pack_home_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         a, static_cast<const uint32_t*>(mini_table), static_cast<const uint32_t*>(strips),
         static_cast<float*>(home_out), p, w);
   }

@@ -3,8 +3,8 @@
 The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc``
 process per source, all started together, and linked into one shared
 library with a plain C interface, at first use, into ``build/kernels/``
-beside the package, under a name keyed on a hash of the sources and
-flags. The library is loaded with ``ctypes``; every entry point returns
+beside the package, under a name keyed on a hash of the sources, the
+headers they share (``csrc/*.cuh``) and the flags. The library is loaded with ``ctypes``; every entry point returns
 ``cudaGetLastError()`` and ``check`` raises when it is not 0.
 
 ``--fmad=false`` (and no ``--use_fast_math``) keeps each kernel on the
@@ -91,8 +91,10 @@ def nvcc_path() -> str | None:
 
 
 def _library_path() -> Path:
+    """The library's path, keyed on the flags, the sources and the
+    headers they share (``csrc/*.cuh``)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SRC_DIR.glob("*.cu")):
+    for src in sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libsspt_kernels_{digest.hexdigest()[:16]}.so"
@@ -146,8 +148,9 @@ def load_library() -> ctypes.CDLL:
 
 def _kernel_name(mangled: str) -> str:
     """``_ZN<len>_GLOBAL__N__..<len>schedule_pack_kernelILb1EEEv...`` ->
-    ``schedule_pack_kernel<1>``: the innermost name and its bool template
-    arguments."""
+    ``schedule_pack_kernel<1>``: the innermost name and its bool or int
+    template arguments (``pack_by_slot_kernelILi3EEEv...`` ->
+    ``pack_by_slot_kernel<3>``)."""
     if not mangled.startswith("_Z"):
         return mangled
     i = 3 if mangled.startswith("_ZN") else 2
@@ -156,8 +159,8 @@ def _kernel_name(mangled: str) -> str:
         n = int(m.group())
         name = mangled[i + m.end():i + m.end() + n]
         i += m.end() + n
-    if bools := re.match(r"I((?:Lb[01]E)+)E", mangled[i:]):
-        name += "<" + ",".join(re.findall(r"Lb([01])E", bools.group(1))) + ">"
+    if args := re.match(r"I((?:L[bi]\d+E)+)E", mangled[i:]):
+        name += "<" + ",".join(re.findall(r"L[bi](\d+)E", args.group(1))) + ">"
     return name
 
 
@@ -202,6 +205,16 @@ def require_cuda(name: str, *tensors) -> None:
             raise RuntimeError(f"{name}: needs CUDA tensors on one device, got {t.device}")
         if not t.is_contiguous():
             raise RuntimeError(f"{name}: needs contiguous tensors")
+
+
+def flag_bytes(t):
+    """A contiguous uint8 tensor of the flags ``t``: a bool tensor's own
+    bytes (a view, no copy; torch stores bool as 0 / 1 bytes), any other
+    dtype converted."""
+    import torch
+
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool else t.to(torch.uint8)
 
 
 def stream_of(tensor):

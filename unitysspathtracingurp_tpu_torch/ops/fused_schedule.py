@@ -40,6 +40,9 @@ from .depth_tiles import f16_from_bits, mini_of
 HOME_BANDS = 3
 HOME_PAIRS = 6
 HOME_SLOTS = 4
+# K6's block: 4 screen rows of one lane block, one thread a lane
+# (csrc/schedule_pack.cu HOME_BLOCK_ROWS x 128).
+HOME_THREADS = 512
 
 
 # The shared-memory budget of K1 / K4 / K6 on one H100 SM: its capacity,
@@ -47,7 +50,8 @@ HOME_SLOTS = 4
 # cudaFuncSetAttribute, which the C entry points call), and what the
 # runtime reserves per resident block. The kernels are built with
 # __launch_bounds__(512, 2), at most 64 registers a thread, so registers
-# hold 1,024 threads an SM; shared memory decides how many are resident.
+# hold 1,024 threads an SM (K6 too: its 512-thread blocks, two an SM);
+# shared memory decides how many are resident.
 SMEM_PER_SM = 228 * 1024
 SMEM_PER_BLOCK = 227 * 1024
 SMEM_RESERVED = 1024
@@ -427,7 +431,8 @@ def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, min
         return schedule_pack_home_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
                                       mini_table, home_strips, scalars, home_shape=home_shape,
                                       **params)
-    from ..kernels.build import LAUNCHES, check, load_library, require_cuda, stream_of
+    from ..kernels.build import (LAUNCHES, check, flag_bytes, load_library, require_cuda,
+                                 stream_of)
 
     _check_home_shape(ray_pos, home_strips, home_shape)
     lib = load_library()
@@ -435,7 +440,7 @@ def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, min
     ins = [
         ray_pos.to(torch.float32).contiguous(), ray_dir.to(torch.float32).contiguous(),
         dither.to(torch.float32).contiguous(), large_step.to(torch.float32).contiguous(),
-        alive.to(torch.uint8).contiguous(), is_back.to(torch.uint8).contiguous(),
+        flag_bytes(alive), flag_bytes(is_back),
         mini_table.to(torch.int32).contiguous(), home_strips.to(torch.int32).contiguous(),
         scalars.to(torch.float32).contiguous(),
     ]
@@ -444,10 +449,8 @@ def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, min
         t.shape != (n,) for t in ins[2:6]
     ) or ins[8].numel() != 18:
         raise RuntimeError("schedule_pack_home: bad input shapes")
-    # The table and the strip; K6 stores its slots to device memory and
-    # stages none.
-    _, smem = pack_budget(mini_table.numel() + HOME_BANDS * HOME_PAIRS * 128, k, 0,
-                          threads=128)
+    # K6's block: HOME_THREADS threads, the table and the staging.
+    _, smem = pack_budget(mini_table.numel(), k, 3, threads=HOME_THREADS)
     dev = ray_pos.device
     pk = [torch.empty((k, n), dtype=torch.float32, device=dev) for _ in range(3)]
     n_cand = torch.empty(n, dtype=torch.int32, device=dev)

@@ -79,11 +79,12 @@ def pack_by_slot(cand, fields, k: int):
     there is no fallback."""
     if cand.device.type == "cpu":
         return pack_by_slot_ref(cand, fields, k)
-    from ..kernels.build import LAUNCHES, check, load_library, require_cuda, stream_of
+    from ..kernels.build import (LAUNCHES, check, flag_bytes, load_library, require_cuda,
+                                 stream_of)
 
     lib = load_library()
     s, n = cand.shape
-    c = cand.to(torch.uint8).contiguous()
+    c = flag_bytes(cand)
     ins = [f.to(torch.float32).contiguous() for f in fields]
     require_cuda("pack_by_slot", c, *ins)
     if not 3 <= len(ins) <= 4 or any(t.shape != (s, n) for t in ins) or s > 64 or k > 16:
