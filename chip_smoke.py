@@ -34,8 +34,9 @@ Phases (any failure exits non-zero and prints no result line):
      report, never a gate);
   6. a report, whose gates are the diagnostic march's launch counts and
      K3's bit identity: the diagnostic march (K2 + K3, counts set to 0
-     before and read after) through a 1080p headline frame, K3 on its
-     own inputs in every bounce of that march, its bounce-0 locality and round counters with and without the home
+     before and read after) through a 1080p headline frame with a
+     torch.profiler report of two more, K3 on its own inputs in every
+     bounce of that march, its bounce-0 locality and round counters with and without the home
      prefix, R1 on every bounce of the headline and home frames and
      R1-dual on every bounce of the dual frame (their own inputs, with
      bound, links a lane and warp efficiency), and the home prefix x
@@ -854,6 +855,9 @@ def diagnostic_report(dev, card):
     finally:
         ph.ray_march_hiz = real
     counts = dict(LAUNCHES)
+    profile_frames(lambda: ph.trace_frame_hiz(
+        gb, cam, probes, s, dataclasses.replace(cfg, hiz_round_cap=0.4), s.variants(), 99,
+        tiles=tiles, _debug_out={}), card, "diagnostic march")
     gate(all(counts.get(name, 0) > 0 for name in PATHS["diagnostic"])
          and all(counts.get(name, 0) == 0 for name in KERNELS
                  if name not in PATHS["diagnostic"]),
@@ -1096,13 +1100,13 @@ def main_path(dev, card, path: str):
           f"{s.maximum_depth} bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
           f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s, "
           f"samples {r.sample}, launches {launches} [{card}]")
-    profile_frames(r, gb, cam, card, name)
+    profile_frames(lambda: r.render_frame(gb, cam), card, f"{name} main-path")
     return launches
 
 
-def profile_frames(r, gb, cam, card, name, frames=2):
-    """Device time by kernel over ``frames`` more main-path frames
-    (torch.profiler, CUPTI). Reports; never fails the smoke."""
+def profile_frames(frame, card, name, frames=2):
+    """Device time by kernel over ``frames`` more calls of ``frame`` (one
+    frame each; torch.profiler, CUPTI). Reports; never fails the smoke."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1110,7 +1114,7 @@ def profile_frames(r, gb, cam, card, name, frames=2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(frames):
-                r.render_frame(gb, cam)
+                frame()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name = {}
@@ -1127,7 +1131,7 @@ def profile_frames(r, gb, cam, card, name, frames=2):
         print("profile: torch.profiler saw no device time")
         return
     launches = sum(c for _, c, _ in rows)
-    print(f"profile of {frames} {name} main-path frames: wall {wall_us / frames / 1e3:.3f} "
+    print(f"profile of {frames} {name} frames: wall {wall_us / frames / 1e3:.3f} "
           f"ms/frame, device busy {busy / frames / 1e3:.3f} ms/frame "
           f"(idle share {1.0 - busy / wall_us:.3f}), {launches / frames:.0f} "
           f"device ops/frame [{card}]")

@@ -28,10 +28,10 @@ at the step that found it (copy ``device``, 128 threads):
 device - device+exit, (c) what is left with neither = none+exit, beside
 the bound; ``library`` is the unpatched file. Loop iterations a lane and
 a warp run with the exit come from the ``none+exit`` copy. K6's copies
-run in the copy's own block (``Copy.home_*``): ``home-rR`` / ``-free``
-change its rows a block and the blocks an SM asked of ptxas, ``home-ldg*``
-read the minitile table through ``__ldg`` (shared memory: the staging
-only), ``home-strip-r2`` holds the strip in shared memory, and
+run in the copy's own block (``Copy.home_*``): ``home-rR`` change its
+rows a block (and the blocks an SM asked of ptxas), ``home-table*`` hold
+the minitile table in shared memory before the staging,
+``home-eager-budget`` computes the search budget for every test, and
 ``home-no-tests`` drops the post-loop exact tests (its packs only are
 compared). ``--kernels`` and ``--copies`` pick what is built and timed. With
 ``--parent DIR`` (an unpacked earlier tree,
@@ -90,12 +90,19 @@ LDG = ("      const uint32_t word = __ldg(mini_table + mini);\n"
        "      const uint32_t bword = __ldg(dual.bmax_table + mini);\n")
 TABLE = ("  const int table_words = DUAL ? 0 : p.n_mini_words;\n"
          "  for (int i = threadIdx.x; i < table_words; i += blockDim.x) s_dyn[i] = mini_table[i];\n")
-HOME_TABLE = ("  for (int i = threadIdx.x; i < p.n_mini_words; i += blockDim.x) "
-              "s_dyn[i] = mini_table[i];\n")
-HOME_STAGE = "  float* stage = reinterpret_cast<float*>(s_dyn + p.n_mini_words);\n"
-HOME_SMEM = "  if (smem < (n_mini_words + 3 * k * threads) * 4)"
-STRIP_READ = ("    const uint32_t word = __ldg(home.strip + srow * 128 + "
-              "(((iy2 & 7) << 4) | (ix2 & 15)));\n")
+HOME_HEAD = ("  extern __shared__ float stage[];\n"
+             "  const int row = blockIdx.y * HOME_BLOCK_ROWS + (threadIdx.x >> 7);\n")
+HOME_CALL = "  pack_lane<false, true>(lane, a, mini_table, p, none, home, stage + threadIdx.x);\n"
+HOME_READ = "        word = __ldg(mini_table + mini);\n"
+HOME_SMEM = "  if (smem < 3 * k * threads * 4)"
+LAZY_BUDGET = ("    bool hit = (dd <= 0.0f) && !is_sky;\n"
+               "    if (hit && !(dd >= -th_q)) {\n"
+               "      hit = false;\n"
+               "      if (backray) {\n"
+               "        const float halv = ceilf(log2f(fmaxf(-dd / fmaxf(th_q, 1e-6f), 1.0f)));\n"
+               "        hit = sidx + 1.0f + halv <= static_cast<float>(p.s_max);\n"
+               "      }\n"
+               "    }\n")
 
 # Every lane runs s_max steps.
 NO_EXIT = [(LOOP, "  for (int i = 1; i <= p.s_max; ++i) {\n")]
@@ -158,41 +165,34 @@ TABLES = [
 def home_rows(rows: int, min_blocks: int) -> list:
     """K6 with blocks of ``rows`` screen rows (rows x 128 threads) and
     ``min_blocks`` blocks an SM asked of ptxas."""
-    return [("constexpr int HOME_BLOCK_ROWS = 4;\n", f"constexpr int HOME_BLOCK_ROWS = {rows};\n"),
-            ("constexpr int HOME_MIN_BLOCKS = 2;\n",
+    return [("constexpr int HOME_BLOCK_ROWS = 2;\n", f"constexpr int HOME_BLOCK_ROWS = {rows};\n"),
+            ("constexpr int HOME_MIN_BLOCKS = 4;\n",
              f"constexpr int HOME_MIN_BLOCKS = {min_blocks};\n")]
 
 
-# K6 reads the minitile table through __ldg instead of shared memory
-# (its block holds the staging only; K1 in such a copy is not run).
-HOME_LDG_TABLE = [
-    (HOME_TABLE, ""),
-    ("      const uint32_t word = mini_table[mini];\n",
-     "      const uint32_t word = __ldg(mini_table + mini);\n"),
-    ("  pack_lane<false, true>(lane, a, s_dyn, p, none, home, stage + threadIdx.x);\n",
-     "  pack_lane<false, true>(lane, a, mini_table, p, none, home, stage + threadIdx.x);\n"),
-    (HOME_STAGE, "  float* stage = reinterpret_cast<float*>(s_dyn);\n"),
-    (HOME_SMEM, "  if (smem < (3 * k * threads) * 4)"),
+# K6 with the minitile table in shared memory, before the staging.
+HOME_SHARED_TABLE = [
+    (HOME_HEAD, "  extern __shared__ float stage_all[];\n"
+                "  uint32_t* s_tab = reinterpret_cast<uint32_t*>(stage_all);\n"
+                "  for (int i = threadIdx.x; i < p.n_mini_words; i += blockDim.x) "
+                "s_tab[i] = mini_table[i];\n"
+                "  __syncthreads();\n"
+                "  float* stage = stage_all + p.n_mini_words;\n"
+                "  const int row = blockIdx.y * HOME_BLOCK_ROWS + (threadIdx.x >> 7);\n"),
+    (HOME_CALL, "  pack_lane<false, true>(lane, a, s_tab, p, none, home, stage + threadIdx.x);\n"),
+    (HOME_READ, "        word = mini_table[mini];\n"),
+    (HOME_SMEM, "  if (smem < (n_mini_words + 3 * k * threads) * 4)"),
 ]
-# K6 holds its lane block's strip in shared memory after the table.
-HOME_STRIP_SHARED = [
-    (HOME_TABLE, HOME_TABLE + "  {\n    const int sby = blockIdx.y * HOME_BLOCK_ROWS >> 3;\n"
-                 "    const uint32_t* g = strips + (static_cast<size_t>(sby) * gridDim.x + "
-                 "blockIdx.x) * HOME_ROWS * 128;\n"
-                 "    for (int i = threadIdx.x; i < HOME_ROWS * 128; i += blockDim.x)\n"
-                 "      s_dyn[p.n_mini_words + i] = g[i];\n  }\n"),
-    ("  const HomeArgs home = {strips + (static_cast<size_t>(by) * gridDim.x + bx) * HOME_ROWS * "
-     "128,\n", "  const HomeArgs home = {s_dyn + p.n_mini_words,\n"),
-    (STRIP_READ, "    const uint32_t word = home.strip[srow * 128 + "
-                 "(((iy2 & 7) << 4) | (ix2 & 15))];\n"),
-    (HOME_STAGE, "  float* stage = reinterpret_cast<float*>(s_dyn + p.n_mini_words + "
-                 "HOME_ROWS * 128);\n"),
-    (HOME_SMEM, "  if (smem < (n_mini_words + HOME_ROWS * 128 + 3 * k * threads) * 4)"),
-]
+# K6 computing the search budget for every test.
+HOME_EAGER = [(LAZY_BUDGET,
+               "    const float halv = ceilf(log2f(fmaxf(-dd / fmaxf(th_q, 1e-6f), 1.0f)));\n"
+               "    const bool budget_ok = sidx + 1.0f + halv <= static_cast<float>(p.s_max);\n"
+               "    const bool hit = (dd <= 0.0f) && !is_sky && ((dd >= -th_q) || "
+               "(backray && budget_ok));\n")]
 # K6 without the post-loop exact tests of the home slots (the routing
 # stays; n_cand and the (11, N) rows are then not K6's).
 HOME_NO_TESTS = [("    if (j >= run_home || hitf) continue;\n", "    if (true) continue;\n")]
-STRIP_WORDS = 3 * 6 * 128
+STRIP_WORDS = 3 * 6 * 128  # a lane block's home strip (the parent's K6 held it)
 
 
 class Copy(NamedTuple):
@@ -205,8 +205,8 @@ class Copy(NamedTuple):
     patches: list
     staged: bool = True
     tables: bool = False
-    home_threads: int = 512
-    home_table: bool = True
+    home_threads: int = 256
+    home_table: bool = False
     home_strip: bool = False
     home_stage: bool = True
     slots: bool = True
@@ -214,13 +214,13 @@ class Copy(NamedTuple):
 
 
 # "library" is schedule_pack.cu itself, as the wrappers load it (K1 / K4
-# / K6 staged with the warp's row copies and the exit; K6 in 512-thread
-# blocks of 4 rows, the table in shared memory, the strip read through
-# __ldg). "parent": with --parent, that tree's own schedule_pack.cu (entry
-# points with the same arguments; its K6 marched a lane block's 8 rows
-# with 128 threads, the table and the strip in shared memory, and stored
-# each slot at once).
-PARENT = Copy([], home_threads=128, home_strip=True, home_stage=False)
+# / K6 staged with the warp's row copies and the exit; K6 in 256-thread
+# blocks of 2 rows, four an SM, the table and the strip read through
+# __ldg, the lazy search budget). "parent": with --parent, that tree's own
+# schedule_pack.cu (entry points with the same arguments; its K6 marched
+# a lane block's 8 rows with 128 threads, the table and the strip in
+# shared memory, and stored each slot at once).
+PARENT = Copy([], home_threads=128, home_table=True, home_strip=True, home_stage=False)
 COPIES = {
     "device": Copy(DEVICE + NO_EXIT, staged=False),
     "device+exit": Copy(DEVICE, staged=False),
@@ -235,14 +235,14 @@ COPIES = {
     "shared-lanes+exit": Copy(LANES),
     "local+exit": Copy(LOCAL, staged=False),
     "shared+exit+tables": Copy(TABLES, tables=True),
-    "home-r4-free": Copy(home_rows(4, 1)),
-    "home-r2": Copy(home_rows(2, 3), home_threads=256),
-    "home-r1": Copy(home_rows(1, 5), home_threads=128),
-    "home-ldg": Copy(HOME_LDG_TABLE, home_table=False),
-    "home-ldg-r2": Copy(HOME_LDG_TABLE + home_rows(2, 4), home_threads=256, home_table=False),
-    "home-ldg-r8": Copy(HOME_LDG_TABLE + home_rows(8, 1), home_threads=1024, home_table=False),
-    "home-strip-r2": Copy(HOME_STRIP_SHARED + home_rows(2, 3), home_threads=256,
-                          home_strip=True),
+    "home-r1": Copy(home_rows(1, 8), home_threads=128),
+    "home-r2-min3": Copy(home_rows(2, 3)),
+    "home-r4": Copy(home_rows(4, 2), home_threads=512),
+    "home-r8": Copy(home_rows(8, 1), home_threads=1024),
+    "home-table": Copy(HOME_SHARED_TABLE, home_table=True),
+    "home-table-r4": Copy(HOME_SHARED_TABLE + home_rows(4, 2), home_threads=512,
+                          home_table=True),
+    "home-eager-budget": Copy(HOME_EAGER),
     "home-no-tests": Copy(HOME_NO_TESTS, exact=False),
 }
 # (copy, threads a block) timed per kernel; None: the budget's choice
@@ -258,9 +258,9 @@ RUNS = {
            ("shared-lanes+exit", None), ("local+exit", 128), ("local+exit", 512),
            ("shared+exit+tables", 128), ("shared+exit+tables", 256)],
     "K6": [("parent", None), ("library", None), ("device+exit", None), ("none+exit", None),
-           ("shared-lanes+exit", None), ("home-r4-free", None), ("home-r2", None),
-           ("home-r1", None), ("home-ldg", None), ("home-ldg-r2", None), ("home-ldg-r8", None),
-           ("home-strip-r2", None), ("home-no-tests", None)],
+           ("shared-lanes+exit", None), ("home-r1", None), ("home-r2-min3", None),
+           ("home-r4", None), ("home-r8", None), ("home-table", None), ("home-table-r4", None),
+           ("home-eager-budget", None), ("home-no-tests", None)],
 }
 ENTRIES = ("sspt_schedule_pack", "sspt_schedule_pack_dual", "sspt_schedule_pack_home")
 
@@ -317,7 +317,8 @@ def build_copies(parent: Path | None, names=None) -> dict:
 
 
 @contextlib.contextmanager
-def use(lib, copy: Copy, forced: int | None, dual_table_words: int = 0):
+def use(lib, copy: Copy, forced: int | None, dual_table_words: int = 0,
+        home_table_words: int = 0):
     """The wrappers launch ``lib``'s kernels with ``forced`` threads a
     block (None: the budget's choice; K6 the copy's block) and the shared
     memory ``copy`` needs: staging only where it stages in shared memory,
@@ -326,7 +327,7 @@ def use(lib, copy: Copy, forced: int | None, dual_table_words: int = 0):
 
     def budget(table_words, k, n_fields, threads=None):
         if threads is not None:  # K6: the copy's block
-            words = table_words * copy.home_table + STRIP_WORDS * copy.home_strip
+            words = home_table_words * copy.home_table + STRIP_WORDS * copy.home_strip
             return real[1](words, k, 3 * copy.home_stage, threads=copy.home_threads)
         extra = dual_table_words if copy.tables and n_fields == 4 else 0
         return real[1](table_words + extra, k, n_fields if copy.staged else 0, threads=forced)
@@ -369,7 +370,7 @@ def bound_ms(kernel: str, n: int, k: int, table_bytes: int) -> float:
 
 
 def run_set(label, kernel, wrapper, ref_fn, args, kw, libs, results, dual_table_words=0,
-            table_bytes=0):
+            table_bytes=0, home_table_words=0):
     """Time and check every RUNS[kernel] entry on one input set."""
     ref = ref_fn(*args, **kw)
     n, k = args[0].shape[0], kw["k"]
@@ -386,7 +387,7 @@ def run_set(label, kernel, wrapper, ref_fn, args, kw, libs, results, dual_table_
         spec = PARENT if copy == "parent" else COPIES[copy]
 
         def fn(lib=lib, spec=spec, threads=threads):
-            with use(lib, spec, threads, dual_table_words):
+            with use(lib, spec, threads, dual_table_words, home_table_words):
                 return wrapper(*args, **kw)
 
         key = f"{copy} t{threads or 'budget'}"
@@ -463,7 +464,8 @@ def main() -> int:
     k6_kw = dict(kw, home_shape=(cs.H_FULL, cs.W_FULL))
     if "K6" in only:
         run_set("test rays 1080p", "K6", fs.schedule_pack_home, fs.schedule_pack_home_ref,
-                k6_args, k6_kw, libs, results, table_bytes=tb + strips.numel() * 4)
+                k6_args, k6_kw, libs, results, table_bytes=tb + strips.numel() * 4,
+                home_table_words=tiles.mini_table.numel())
 
     calls, tiles = cs.frame_calls(dev, "headline", "schedule_pack")
     tb = tiles.mini_table.numel() * 4
@@ -476,7 +478,7 @@ def main() -> int:
         run_set("headline frame bounce 0 rays", "K6", fs.schedule_pack_home,
                 fs.schedule_pack_home_ref, (*a[:7], strips, a[7]),
                 dict(kwc, home_shape=(cs.H_FULL, cs.W_FULL)), libs, results,
-                table_bytes=tb + strips.numel() * 4)
+                table_bytes=tb + strips.numel() * 4, home_table_words=tiles.mini_table.numel())
 
     if "K4" in only:
         args, kw, _ = test_rays(dev, glass=True)

@@ -437,9 +437,9 @@ def test_flag_bytes_views_bool_flags(dtype):
 def test_pack_budget_bytes_and_block_size():
     """K1 / K4's shared memory a block: the minitile table (K4: none),
     then 3 (K4: 4) x K = 16 staged f32 slots a thread, at the block size
-    that keeps the most threads resident; K6's block of HOME_THREADS (512)
-    holds the table and K1's staging at every size; a table too large for
-    a block raises. Minitile words: 256^2 has 8 x 16 minitiles (one
+    that keeps the most threads resident; K6's block of HOME_THREADS (256)
+    holds its staging only (its table stays in device memory); a table
+    too large for a block raises. Minitile words: 256^2 has 8 x 16 minitiles (one
     128-word chunk), 1080p 60 x 68 (32 chunks), 3840x2160 120 x 135 (127
     chunks)."""
     from unitysspathtracingurp_tpu_torch.ops.fused_schedule import HOME_THREADS, pack_budget
@@ -447,10 +447,9 @@ def test_pack_budget_bytes_and_block_size():
     for words, threads in ((128, 128), (4096, 512), (16256, 256)):
         assert pack_budget(words, 16, 3) == (threads, (words + 3 * 16 * threads) * 4)
     assert pack_budget(0, 16, 4) == (128, 4 * 16 * 128 * 4)
-    assert HOME_THREADS == 512
-    for words in (128, 4096, 16256):
-        assert pack_budget(words, 16, 3, threads=HOME_THREADS) == (
-            512, (words + 3 * 16 * 512) * 4)
+    assert HOME_THREADS == 256
+    assert pack_budget(0, 16, 3, threads=HOME_THREADS) == (256, 3 * 16 * 256 * 4)
+    assert pack_budget(0, 2, 3, threads=HOME_THREADS) == (256, 3 * 2 * 256 * 4)
     with pytest.raises(RuntimeError, match="shared memory"):
         pack_budget(58 * 1024, 16, 3)
 

@@ -38,10 +38,13 @@
 // rows of one 8x128-px lane block, so its (by, bx) is the strip index
 // and each warp's 32 lanes are contiguous on screen and in memory. The
 // routed candidates' codes stay in registers (unrolled selects, no local
-// arrays); the few strip words the tests read come from device memory
-// through the read-only cache. Bound: K1's bytes plus the strips once
-// (18 x 128 x 4 B per lane block, 18.7 MB at 1080p) plus the (11, N) f32
-// init, ~0.59 GB at 1080p, ~0.175 ms.
+// arrays); the minitile table and the few strip words the tests read
+// come from device memory through the read-only cache, so shared memory
+// holds only the staging. The tests compute R1's search budget only
+// where it decides (a back ray behind the depth by more than th).
+// Bound: K1's bytes plus the strips once (18 x 128 x 4 B per lane
+// block, 18.7 MB at 1080p) plus the (11, N) f32 init, ~0.59 GB at
+// 1080p, 0.175 ms.
 //
 // Per lane: rebuild the s_max-step march schedule (6 small steps, 12
 // medium, then the per-lane large step; x1.1 step and +25% thickness
@@ -103,8 +106,8 @@
 // ~1,150): shared memory, not registers, limits both.
 // K4 reads its 96 KB of dual tables through __ldg: staging one combo's
 // 32 KB in shared memory was slower at every block size (occupancy).
-// K6 stages as K1 does, in blocks of HOME_BLOCK_ROWS x 128 threads with
-// the table and the staging only (the strip stays in device memory).
+// K6 stages as K1 does, in blocks of HOME_BLOCK_ROWS x 128 threads that
+// hold the staging only.
 // scripts/pack_ablation.py builds patched copies of this file (the
 // earlier stores, no exit, no slots, local arrays, staged tables, K6's
 // block shapes) to measure the split and these choices.
@@ -285,7 +288,13 @@ __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
       cand = proc && (hitd >= mmin) &&
              ((hitd - margin <= umax) || searchlane || (hitd <= bmax));
     } else {
-      const uint32_t word = mini_table[mini];
+      // K1's table sits in shared memory, K6's in device memory.
+      uint32_t word;
+      if constexpr (HOME) {
+        word = __ldg(mini_table + mini);
+      } else {
+        word = mini_table[mini];
+      }
       const float mmin = half_bits_to_float(word);
       const float mmax = half_bits_to_float(word >> 16);
       cand = proc && (hitd >= mmin) && ((hitd - th <= mmax) || backray);
@@ -374,9 +383,17 @@ __device__ __forceinline__ void pack_lane(int lane, const LaneArgs& a,
     const float d_raw = half_bits_to_float(bits16);  // exact, subnormals too
     const bool is_sky = bits16 == 0u;
     const float dd = 1.0f / (d_raw * zz + zw) - hitd2;
-    const float halv = ceilf(log2f(fmaxf(-dd / fmaxf(th_q, 1e-6f), 1.0f)));
-    const bool budget_ok = sidx + 1.0f + halv <= static_cast<float>(p.s_max);
-    if ((dd <= 0.0f) && !is_sky && ((dd >= -th_q) || (backray && budget_ok))) {
+    // R1's rule, (dd <= 0) & !sky & ((dd >= -th_q) | (back & budget_ok)),
+    // with the search budget computed only where it decides.
+    bool hit = (dd <= 0.0f) && !is_sky;
+    if (hit && !(dd >= -th_q)) {
+      hit = false;
+      if (backray) {
+        const float halv = ceilf(log2f(fmaxf(-dd / fmaxf(th_q, 1e-6f), 1.0f)));
+        hit = sidx + 1.0f + halv <= static_cast<float>(p.s_max);
+      }
+    }
+    if (hit) {
       hitf = true;
       h_cum = cum_j;
       h_diff = dd;
@@ -433,32 +450,28 @@ schedule_pack_kernel(LaneArgs a, const uint32_t* __restrict__ mini_table, DualAr
 
 // K6's block: HOME_BLOCK_ROWS screen rows of one 8 x 128-px lane block,
 // one thread a lane, at most 64 registers a thread for HOME_MIN_BLOCKS
-// blocks an SM.
-constexpr int HOME_BLOCK_ROWS = 4;
-constexpr int HOME_MIN_BLOCKS = 2;
+// blocks an SM (1,024 threads: the staging, 48 KB a block, allows 4).
+constexpr int HOME_BLOCK_ROWS = 2;
+constexpr int HOME_MIN_BLOCKS = 4;
 
 // Block (bx, y) marches screen rows y * HOME_BLOCK_ROWS .. + HOME_BLOCK_ROWS
 // - 1, columns bx * 128 .. + 127: thread t takes row t / 128, column
 // t % 128, so each warp's 32 lanes are contiguous. Dynamic shared memory:
-// the minitile table, then the slot staging (3 x K x blockDim f32). The
-// home strip of the block's lane block is read from device memory (at
-// most HOME_SLOTS words a lane, after the loop).
+// the slot staging (3 x K x blockDim f32). The minitile table (16 KB at
+// 1080p) and the home strip of the block's lane block are read from
+// device memory through the read-only cache.
 __global__ void __launch_bounds__(HOME_BLOCK_ROWS * 128, HOME_MIN_BLOCKS)
 schedule_pack_home_kernel(LaneArgs a, const uint32_t* __restrict__ mini_table,
                           const uint32_t* __restrict__ strips, float* __restrict__ home_out,
                           MarchParams p, int lane_w) {
-  extern __shared__ uint32_t s_dyn[];
-  for (int i = threadIdx.x; i < p.n_mini_words; i += blockDim.x) s_dyn[i] = mini_table[i];
-  __syncthreads();
-
+  extern __shared__ float stage[];
   const int row = blockIdx.y * HOME_BLOCK_ROWS + (threadIdx.x >> 7);
   const int by = row >> 3, bx = blockIdx.x;
   const int lane = row * lane_w + bx * 128 + (threadIdx.x & 127);
   const DualArgs none = {nullptr, nullptr, nullptr, nullptr, 0};
   const HomeArgs home = {strips + (static_cast<size_t>(by) * gridDim.x + bx) * HOME_ROWS * 128,
                          by, bx, home_out};
-  float* stage = reinterpret_cast<float*>(s_dyn + p.n_mini_words);
-  pack_lane<false, true>(lane, a, s_dyn, p, none, home, stage + threadIdx.x);
+  pack_lane<false, true>(lane, a, mini_table, p, none, home, stage + threadIdx.x);
   float* const outs[3] = {a.pk_cum, a.pk_scode, a.pk_hist};
   write_rows<3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));
 }
@@ -551,8 +564,7 @@ extern "C" int sspt_schedule_pack_dual(
 // Lanes are the screen-ordered (h, w) pixel grid, h % 8 == 0 and
 // w % 128 == 0 (the wrapper checks); strips is (h/8, w/128, 18, 128).
 // `smem` (dynamic shared bytes a block) comes from the wrapper's budget
-// for HOME_BLOCK_ROWS x 128 threads: less than the table and the staging
-// is refused.
+// for HOME_BLOCK_ROWS x 128 threads: less than the staging is refused.
 // The scalars go to the library's one constant copy (c_scal) on `stream`
 // before the launch: call the entry points from one stream at a time.
 extern "C" int sspt_schedule_pack_home(
@@ -564,7 +576,7 @@ extern "C" int sspt_schedule_pack_home(
     float small_step, float medium_step, float thickness, float th_inc,
     float step_growth, float th_cap, float texel_x, float texel_y, int smem, void* stream) {
   constexpr int threads = HOME_BLOCK_ROWS * 128;
-  if (smem < (n_mini_words + 3 * k * threads) * 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem < 3 * k * threads * 4) return static_cast<int>(cudaErrorInvalidValue);
   const int e = prepare(reinterpret_cast<const void*>(schedule_pack_home_kernel), smem, scalars,
                         stream);
   if (e != 0) return e;

@@ -40,18 +40,20 @@ from .depth_tiles import f16_from_bits, mini_of
 HOME_BANDS = 3
 HOME_PAIRS = 6
 HOME_SLOTS = 4
-# K6's block: 4 screen rows of one lane block, one thread a lane
+# K6's block: 2 screen rows of one lane block, one thread a lane
 # (csrc/schedule_pack.cu HOME_BLOCK_ROWS x 128).
-HOME_THREADS = 512
+HOME_THREADS = 256
 
 
 # The shared-memory budget of K1 / K4 / K6 on one H100 SM: its capacity,
 # the most one block may take (dynamic, above 48 KB only after
 # cudaFuncSetAttribute, which the C entry points call), and what the
-# runtime reserves per resident block. The kernels are built with
+# runtime reserves per resident block. K1 and K4 are built with
 # __launch_bounds__(512, 2), at most 64 registers a thread, so registers
-# hold 1,024 threads an SM (K6 too: its 512-thread blocks, two an SM);
-# shared memory decides how many are resident.
+# hold 1,024 threads an SM; shared memory decides how many are resident.
+# K6 runs blocks of HOME_THREADS, built for 4 an SM (1,024 threads; its
+# 48 KB of staging a block allows that), and reads its table from device
+# memory.
 SMEM_PER_SM = 228 * 1024
 SMEM_PER_BLOCK = 227 * 1024
 SMEM_RESERVED = 1024
@@ -449,8 +451,8 @@ def schedule_pack_home(ray_pos, ray_dir, dither, large_step, alive, is_back, min
         t.shape != (n,) for t in ins[2:6]
     ) or ins[8].numel() != 18:
         raise RuntimeError("schedule_pack_home: bad input shapes")
-    # K6's block: HOME_THREADS threads, the table and the staging.
-    _, smem = pack_budget(mini_table.numel(), k, 3, threads=HOME_THREADS)
+    # K6's block: HOME_THREADS threads and their staging.
+    _, smem = pack_budget(0, k, 3, threads=HOME_THREADS)
     dev = ray_pos.device
     pk = [torch.empty((k, n), dtype=torch.float32, device=dev) for _ in range(3)]
     n_cand = torch.empty(n, dtype=torch.int32, device=dev)
