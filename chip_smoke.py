@@ -36,11 +36,11 @@ Phases (any failure exits non-zero and prints no result line):
      K3's bit identity: the diagnostic march (K2 + K3, counts set to 0
      before and read after) through a 1080p headline frame with a
      torch.profiler report of two more, K3 on its own inputs in every
-     bounce of that march, its bounce-0 locality and round counters with and without the home
-     prefix, R1 on every bounce of the headline and home frames and
-     R1-dual on every bounce of the dual frame (their own inputs, with
-     bound, links a lane and warp efficiency), and the home prefix x
-     round budget A/B;
+     bounce of that march, its bounce-0 locality and round counters
+     with and without the home prefix, R1 on every bounce of the
+     headline and home frames and R1-dual on every bounce of the dual
+     frame (their own inputs, with bound, links a lane and warp
+     efficiency), and the home prefix x round budget A/B;
 then one JSON line of per-kernel numbers, the card line again, and the
 last line {"ok": true, "device": {...}}.
 

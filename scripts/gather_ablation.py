@@ -4,9 +4,9 @@ one NVIDIA GPU: where its time goes, and which design is fastest.
 
     python3 scripts/gather_ablation.py [--parent DIR] [--out FILE]   # repository root, a GPU
 
-Each copy (``COPIES``) is ``pallas_gather.cu`` with K3's kernel and its
-entry point replaced by a variant of its own: the text between
-``KERNEL_SPAN`` and between ``ENTRY_SPAN`` (each anchor must occur once).
+Each copy (``COPIES``) is ``pallas_gather.cu`` with exact text
+replacements (each anchor must occur once): K3's kernel replaced by a
+variant, its block size, its loads, its launch's shared memory and grid.
 The copies go to ``build/gather_ablation/``, one ``nvcc`` per copy, all
 started together; the script prints each copy's registers and spills
 (``-Xptxas -v``). Then, through the port's own wrapper
@@ -25,7 +25,10 @@ Every copy is timed on (S, N) uint8 flags; ``library, bool flags`` times
 the unpatched file on the bool flags the march passes, so it includes
 whatever the wrapper does with them (the earlier wrapper copied them to
 uint8; the wrapper now views their bytes). ``library`` is the shipped
-design, ``staged-t256``'s. The split (one thread a lane unless named):
+design: one thread a lane, every row's loads four rows at a time, the
+slots staged in shared memory ([field][K][block], thread index fastest)
+and the warp's rows written as 16-byte stores (``csrc/write_rows.cuh``),
+256 threads a block. The split (one thread a lane unless named):
 
 - ``scattered``: the earlier design (each flagged row's loads under the
   branch, each slot stored to row ``run`` of the (K, N) tables at once,
@@ -33,11 +36,9 @@ design, ``staged-t256``'s. The split (one thread a lane unless named):
 - ``branchless``: the same stores, every row's flag and fields loaded
   four rows at a time, then selected: (b) the branchy loads = scattered
   - branchless;
-- ``staged-branchy``: slots staged in shared memory ([field][K][block],
-  thread index fastest) and the warp's rows written as 16-byte stores
-  (``csrc/write_rows.cuh``), the loads still under the branch: (a) the
-  scattered stores = scattered - staged-branchy;
-- ``staged``: staged and branchless;
+- ``staged-branchy``: the library with the loads under the branch: (a)
+  the scattered stores = scattered - staged-branchy;
+- ``staged``: the library at another block size;
 - ``quad``: four lanes a thread, a 4-byte flag load and 16-byte field
   loads a row, each thread's four lanes staged and written as one
   16-byte store a row;
@@ -73,18 +74,23 @@ from unitysspathtracingurp_tpu_torch.ops import pallas_gather as pg  # noqa: E40
 
 OUT_DIR = ROOT / "build" / "gather_ablation"
 
-# K3's kernel and entry in pallas_gather.cu: each copy replaces the text
-# from the first anchor up to (not including) the second.
-KERNEL_SPAN = ("struct Fields {\n  const float* in[4];\n  float* out[4];\n};\n",
-               "__global__ void extract_chain_kernel")
-ENTRY_SPAN = ('extern "C" int sspt_pack_by_slot(',
-              '// fields_in / fields_out: nf (3 or 4) pointers each, unused ones null.\n'
-              'extern "C" int sspt_extract_chain(')
+# Anchors in pallas_gather.cu (each must occur once) and what the copies
+# put in their place. KERNEL: K3's kernel, from its comment up to the
+# next kernel.
+THREADS = "constexpr int PACK_THREADS = 256;\n"
+KERNEL = ("// Dynamic shared memory: the staging, NF x k x blockDim f32.\n",
+          "__global__ void extract_chain_kernel")
+SMEM = "    const int smem = nf * k * PACK_THREADS * static_cast<int>(sizeof(float));\n"
+BLOCKS = "    const int blocks = (n + PACK_THREADS - 1) / PACK_THREADS;\n"
+LOOP_HEAD = """    for (int r = 0; r < s; r += PACK_ROWS) {
+      uint8_t c[PACK_ROWS];
+"""
 
-# The earlier design, one lane a thread, stores scattered.
-SCATTERED = r"""
+# The earlier design: each flagged row's loads under the branch, each
+# slot stored to row `run` at once, the zeros past the count after.
+SCATTERED = r"""template <int NF>
 __global__ void pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f,
-                                    int32_t* __restrict__ count, int s, int n, int k, int nf) {
+                                    int32_t* __restrict__ count, int s, int n, int k) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   int run = 0;
@@ -94,45 +100,39 @@ __global__ void pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f,
     if (run < k) {
       const size_t d = static_cast<size_t>(run) * n + lane;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (q < nf) f.out[q][d] = f.in[q][o] + 0.0f;
-      }
+      for (int q = 0; q < NF; ++q) f.out[q][d] = f.in[q][o] + 0.0f;
     }
     ++run;
   }
   for (int j = run; j < k; ++j) {
     const size_t d = static_cast<size_t>(j) * n + lane;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (q < nf) f.out[q][d] = 0.0f;
-    }
+    for (int q = 0; q < NF; ++q) f.out[q][d] = 0.0f;
   }
   count[lane] = min(run, k);
 }
 
 """
 
-# Scattered stores, every row's loads issued four rows at a time.
-BRANCHLESS = r"""
-template <int NF>
+# The same stores, every row's flag and fields loaded four rows at a time.
+BRANCHLESS = r"""template <int NF>
 __global__ void pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f,
                                     int32_t* __restrict__ count, int s, int n, int k) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   int run = 0;
-  int r = 0;
-  for (; r < s; r += 4) {
-    uint8_t c[4];
-    float v[NF][4];
+  for (int r = 0; r < s; r += PACK_ROWS) {
+    uint8_t c[PACK_ROWS];
+    float v[NF][PACK_ROWS];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < PACK_ROWS; ++u) {
       const size_t o = static_cast<size_t>(min(r + u, s - 1)) * n + lane;
       c[u] = r + u < s ? __ldg(cand + o) : 0;
 #pragma unroll
       for (int q = 0; q < NF; ++q) v[q][u] = __ldg(f.in[q] + o);
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < PACK_ROWS; ++u) {
       if (c[u] != 0) {
         if (run < k) {
           const size_t d = static_cast<size_t>(run) * n + lane;
@@ -153,66 +153,23 @@ __global__ void pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f,
 
 """
 
-# Staged slots, the warp's rows; BRANCHY picks the loads under the branch.
-STAGED = r"""
-template <int NF, bool BRANCHY>
-__global__ void __launch_bounds__(THREADS)
-pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f, int32_t* __restrict__ count,
-                    int s, int n, int k) {
-  extern __shared__ float stage[];  // [NF][k][blockDim.x]
-  const int t = blockDim.x;
-  const int lane = blockIdx.x * t + threadIdx.x;
-  float* col = stage + threadIdx.x;
-  int run = 0;
-  if (lane < n) {
-    if (BRANCHY) {
-      for (int r = 0; r < s; ++r) {
-        const size_t o = static_cast<size_t>(r) * n + lane;
-        if (cand[o] == 0) continue;
-        if (run < k) {
+# Staged, with each row's loads under its flag (the span: K3's row loop).
+LOOP_END = "  }\n  const int cnt = min(run, k);\n"
+BRANCHY = [((LOOP_HEAD, LOOP_END), """    for (int r = 0; r < s; ++r) {
+      const size_t o = static_cast<size_t>(r) * n + lane;
+      if (cand[o] == 0) continue;
+      if (run < k) {
 #pragma unroll
-          for (int q = 0; q < NF; ++q) col[(q * k + run) * t] = f.in[q][o] + 0.0f;
-        }
-        ++run;
+        for (int q = 0; q < NF; ++q) col[(q * k + run) * t] = f.in[q][o] + 0.0f;
       }
-    } else {
-      for (int r = 0; r < s; r += 4) {
-        uint8_t c[4];
-        float v[NF][4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const size_t o = static_cast<size_t>(min(r + u, s - 1)) * n + lane;
-          c[u] = r + u < s ? __ldg(cand + o) : 0;
-#pragma unroll
-          for (int q = 0; q < NF; ++q) v[q][u] = __ldg(f.in[q] + o);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (c[u] != 0 && run < k) {
-#pragma unroll
-            for (int q = 0; q < NF; ++q) col[(q * k + run) * t] = v[q][u] + 0.0f;
-          }
-          run += c[u] != 0;
-        }
-      }
+      ++run;
     }
-  }
-  const int cnt = min(run, k);
-  for (int j = cnt; j < k; ++j) {
-#pragma unroll
-    for (int q = 0; q < NF; ++q) col[(q * k + j) * t] = 0.0f;
-  }
-  if (lane < n) count[lane] = cnt;
-  write_rows<NF>(stage, f.out, n, k, lane - (threadIdx.x & 31));
-}
+""")]
 
-"""
-
-# Four lanes a thread: staging [NF][k][4][blockDim.x], one 16-byte store
-# a row from each thread.
-QUAD = r"""
-template <int NF>
-__global__ void __launch_bounds__(THREADS)
+# Four lanes a thread: staging [NF][k][4][blockDim], a 4-byte flag load
+# and 16-byte field loads a row, one 16-byte store a row from each thread.
+QUAD = r"""template <int NF>
+__global__ void __launch_bounds__(PACK_THREADS)
 pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f, int32_t* __restrict__ count,
                     int s, int n, int k) {
   extern __shared__ float stage[];
@@ -284,87 +241,44 @@ pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f, int32_t* __restr
 
 """
 
-
-def entry(launch: str, lanes_a_thread: int = 1, staged: bool = True) -> str:
-    """The C entry of a copy: THREADS threads a block, ``launch`` the
-    launch statement (``F`` the fields, ``S`` the stream)."""
-    smem = (f"const int smem = nf * k * {lanes_a_thread} * threads * 4;\n"
-            "    const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(K3<3>), "
-            "cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
-            "    const cudaError_t e4 = cudaFuncSetAttribute(reinterpret_cast<const void*>(K3<4>), "
-            "cudaFuncAttributeMaxDynamicSharedMemorySize, smem);\n"
-            "    if (e != cudaSuccess) return static_cast<int>(e);\n"
-            "    if (e4 != cudaSuccess) return static_cast<int>(e4);\n" if staged else
-            "const int smem = 0;\n")
-    return ('extern "C" int sspt_pack_by_slot(const void* cand, const void* in0, const void* in1,\n'
-            "                                 const void* in2, const void* in3, void* out0, "
-            "void* out1,\n"
-            "                                 void* out2, void* out3, void* count, int s, int n, "
-            "int k,\n"
-            "                                 int nf, void* stream) {\n"
-            "  if (n > 0) {\n"
-            "    const Fields F = {\n"
-            "        {static_cast<const float*>(in0), static_cast<const float*>(in1),\n"
-            "         static_cast<const float*>(in2), static_cast<const float*>(in3)},\n"
-            "        {static_cast<float*>(out0), static_cast<float*>(out1), "
-            "static_cast<float*>(out2),\n"
-            "         static_cast<float*>(out3)}};\n"
-            "    const int threads = THREADS;\n"
-            f"    const int lanes = {lanes_a_thread} * threads;\n"
-            "    const int blocks = (n + lanes - 1) / lanes;\n"
-            "    const cudaStream_t S = static_cast<cudaStream_t>(stream);\n"
-            "    const uint8_t* C = static_cast<const uint8_t*>(cand);\n"
-            "    int32_t* N = static_cast<int32_t*>(count);\n"
-            f"    {smem}"
-            f"    {launch}\n"
-            "  }\n"
-            "  return static_cast<int>(cudaGetLastError());\n"
-            "}\n\n")
+NO_SMEM = [(SMEM, "    const int smem = 0;\n")]
+QUAD_LAUNCH = [(SMEM, SMEM.replace("nf * k *", "nf * k * 4 *")),
+               (BLOCKS, BLOCKS.replace("(n + PACK_THREADS - 1) / PACK_THREADS",
+                                       "(n + 4 * PACK_THREADS - 1) / (4 * PACK_THREADS)"))]
 
 
-def staged_entry(branchy: bool) -> str:
-    b = "true" if branchy else "false"
-    return entry(f"if (nf == 3) K3<3><<<blocks, threads, smem, S>>>(C, F, N, s, n, k);\n"
-                 f"    else K3<4><<<blocks, threads, smem, S>>>(C, F, N, s, n, k);").replace(
-        "K3<3>", f"pack_by_slot_kernel<3, {b}>").replace("K3<4>", f"pack_by_slot_kernel<4, {b}>")
+def threads(t: int) -> list:
+    return [(THREADS, f"constexpr int PACK_THREADS = {t};\n")]
 
 
-def quad_entry() -> str:
-    return entry("if (nf == 3) K3<3><<<blocks, threads, smem, S>>>(C, F, N, s, n, k);\n"
-                 "    else K3<4><<<blocks, threads, smem, S>>>(C, F, N, s, n, k);",
-                 lanes_a_thread=4).replace("K3<", "pack_by_slot_kernel<")
+def kernel(text: str) -> list:
+    """Replace K3's kernel (the KERNEL span) with ``text``."""
+    return [(KERNEL, text)]
 
 
-SCATTERED_ENTRY = entry("pack_by_slot_kernel<<<blocks, threads, 0, S>>>(C, F, N, s, n, k, nf);",
-                        staged=False)
-BRANCHLESS_ENTRY = entry(
-    "if (nf == 3) pack_by_slot_kernel<3><<<blocks, threads, 0, S>>>(C, F, N, s, n, k);\n"
-    "    else pack_by_slot_kernel<4><<<blocks, threads, 0, S>>>(C, F, N, s, n, k);", staged=False)
-
-
-def copy(kernel: str, entry_text: str, threads: int) -> tuple[str, str]:
-    return (kernel.replace("THREADS", str(threads)), entry_text.replace("THREADS", str(threads)))
-
-
-# "library" is pallas_gather.cu itself, "parent" (with --parent) that
-# tree's file.
+# "library" is pallas_gather.cu itself (one thread a lane, branchless
+# loads, staged, 256 threads); "parent" (with --parent) that tree's file.
 COPIES = {
-    **{f"scattered-t{t}": copy(SCATTERED, SCATTERED_ENTRY, t) for t in (128, 256, 512)},
-    **{f"branchless-t{t}": copy(BRANCHLESS, BRANCHLESS_ENTRY, t) for t in (128, 256)},
-    "staged-branchy-t256": copy(STAGED, staged_entry(True), 256),
-    **{f"staged-t{t}": copy(STAGED, staged_entry(False), t) for t in (128, 256, 512)},
-    **{f"quad-t{t}": copy(QUAD, quad_entry(), t) for t in (32, 64, 128)},
+    **{f"scattered-t{t}": kernel(SCATTERED) + NO_SMEM + threads(t) for t in (128, 256, 512)},
+    **{f"branchless-t{t}": kernel(BRANCHLESS) + NO_SMEM + threads(t) for t in (128, 256)},
+    "staged-branchy-t256": BRANCHY,
+    **{f"staged-t{t}": threads(t) for t in (128, 512)},
+    **{f"quad-t{t}": kernel(QUAD) + QUAD_LAUNCH + threads(t) for t in (32, 64, 128)},
 }
 
 
-def spliced(src: str, kernel: str, entry_text: str) -> str:
-    """``src`` with K3's kernel span and entry span replaced."""
-    for (start, end), new in ((KERNEL_SPAN, kernel), (ENTRY_SPAN, entry_text)):
-        if src.count(start) != 1 or src.count(end) != 1:
-            raise RuntimeError(f"anchors found {src.count(start)} / {src.count(end)} times: "
-                               f"{start!r} / {end!r}")
-        i = src.index(start) + (len(start) if start == KERNEL_SPAN[0] else 0)
-        src = src[:i] + new + src[src.index(end):]
+def patched(src: str, patches: list) -> str:
+    """``src`` with each replacement applied in turn: an (old, new) pair
+    replaces text that occurs exactly once; a ((start, end), new) pair
+    the text from ``start`` up to ``end``, each occurring once."""
+    for old, new in patches:
+        start, end = old if isinstance(old, tuple) else (old, None)
+        for anchor in (start, end):
+            if anchor is not None and src.count(anchor) != 1:
+                raise RuntimeError(f"anchor found {src.count(anchor)} times: {anchor!r}")
+        i = src.index(start)
+        j = src.index(end) if end is not None else i + len(start)
+        src = src[:i] + new + src[j:]
     return src
 
 
@@ -376,9 +290,9 @@ def build_copies(parent: Path | None) -> dict:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     src = build.SRC_DIR / "pallas_gather.cu"
     jobs = {"library": src}
-    for name, (kernel, entry_text) in COPIES.items():
+    for name, patches in COPIES.items():
         path = OUT_DIR / f"{name}.cu"
-        path.write_text(spliced(src.read_text(), kernel, entry_text))
+        path.write_text(patched(src.read_text(), patches))
         jobs[name] = path
     if parent is not None:
         jobs["parent"] = parent / "unitysspathtracingurp_tpu_torch" / "csrc" / "pallas_gather.cu"

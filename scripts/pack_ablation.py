@@ -77,7 +77,8 @@ SLOT_FN = ("  // Field f of slot j, staged on chip.\n"
            "    return stage_col[(f * k + j) * static_cast<int>(blockDim.x)];\n"
            "  };\n")
 OUTS = "  float* const outs[4] = {a.pk_cum, a.pk_scode, a.pk_hist, dual.pk_step};\n"
-WRITE_ROWS = (OUTS + "  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));\n")
+WRITE_ROWS = (OUTS + "  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, "
+                     "lane - (threadIdx.x & 31));\n")
 WRITE_ROWS_HOME = ("  float* const outs[3] = {a.pk_cum, a.pk_scode, a.pk_hist};\n"
                    "  write_rows<3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));\n")
 STORE = ("        slot(0, run) = cum;\n        slot(1, run) = scode;\n"
@@ -133,7 +134,8 @@ COLUMN = ("#pragma unroll\n  for (int f = 0; f < NF; ++f) {\n"
 LANES = [(SLOT_FN, OUTS + SLOT_FN), (ZERO, COLUMN), (WRITE_ROWS, ""), (WRITE_ROWS_HOME, "")]
 # The slots in per-thread local arrays instead of shared memory.
 LOCAL = [(SLOT_FN, OUTS + "  float local_slots[4][16];\n"
-                          "  auto slot = [&](int f, int j) -> float& { return local_slots[f][j]; };\n"),
+                          "  auto slot = [&](int f, int j) -> float& "
+                          "{ return local_slots[f][j]; };\n"),
          (ZERO, COLUMN), (WRITE_ROWS, ""), (WRITE_ROWS_HOME, "")]
 # K4: the combo of the block's first lane (mini then bmax words) staged
 # in shared memory before the slot staging, other combos through __ldg.

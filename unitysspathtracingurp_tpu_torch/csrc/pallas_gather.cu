@@ -28,16 +28,16 @@
 // Design: one thread a lane keeps the running count in a register over
 // the S rows. It loads four rows' flags and fields at a time, whatever
 // the flags (each row read coalesced, lane-major; several rows' loads in
-// flight), then stages the flagged values in shared memory laid out
-// [field][K][blockDim], thread index fastest, zeroes its slots past the
-// count, and the warp writes its lanes' rows as 16-byte stores
-// (write_rows). The earlier design, loads under the flag and each slot
-// stored to row `run` at once, took 1.30 ms (scripts/gather_ablation.py,
-// H100 80GB HBM3 at 700 W, the 1080p test shape, 3 fields): its
-// scattered stores cost 0.64 ms (one warp store touched many rows and
-// partial sectors) and its branchy loads 0.16 ms. 256-thread blocks
-// (48 or 64 KB of staging, 3-4 blocks an SM) were within 2% of 128 and
-// 512; four lanes a thread with 16-byte loads lost 30% (fewer warps in
+// flight, where loads under the flag kept one row's in flight), then
+// stages the flagged values in shared memory laid out [field][K][blockDim],
+// thread index fastest, zeroes its slots past the count, and the warp
+// writes its lanes' rows as 16-byte stores (write_rows): lanes of one
+// warp sit at different slots, so storing each slot to row `run` at once
+// touched many rows and partial sectors per warp store. On an H100 80GB
+// HBM3 at 700 W this reads 0.84 of the bound at the 1080p shape (0.24
+// with the scattered stores and branchy loads). 256-thread blocks hold 48
+// or 64 KB of staging, 3-4 an SM; 128 and 512 threads were within 2%,
+// and four lanes a thread with 16-byte loads 30% slower (fewer warps in
 // flight at the same staging a lane).
 //
 // K5 (extract_chain_kernel) replaces pallas_gather.py extract_chain

@@ -107,7 +107,13 @@
 // K4 reads its 96 KB of dual tables through __ldg: staging one combo's
 // 32 KB in shared memory was slower at every block size (occupancy).
 // K6 stages as K1 does, in blocks of HOME_BLOCK_ROWS x 128 threads that
-// hold the staging only.
+// hold the staging only. Storing each slot at once cost K6 0.36 ms on
+// the headline's own bounce-0 rays (H100 80GB HBM3, 700 W), as it did
+// K1. 256-thread blocks of 2 rows (four an SM, 1,024 threads) were
+// 0-15% faster than 128, 512 or 1,024 threads; the table in shared
+// memory beside the staging 13-14% slower (fewer blocks an SM); the
+// search budget on every test 1.5% slower. The post-loop tests are
+// 0.08-0.10 ms of K6's time (64 registers with them, 55 without).
 // scripts/pack_ablation.py builds patched copies of this file (the
 // earlier stores, no exit, no slots, local arrays, staged tables, K6's
 // block shapes) to measure the split and these choices.

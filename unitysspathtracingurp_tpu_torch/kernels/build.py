@@ -4,8 +4,9 @@ The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc``
 process per source, all started together, and linked into one shared
 library with a plain C interface, at first use, into ``build/kernels/``
 beside the package, under a name keyed on a hash of the sources, the
-headers they share (``csrc/*.cuh``) and the flags. The library is loaded with ``ctypes``; every entry point returns
-``cudaGetLastError()`` and ``check`` raises when it is not 0.
+headers they share (``csrc/*.cuh``) and the flags. The library is
+loaded with ``ctypes``; every entry point returns ``cudaGetLastError()``
+and ``check`` raises when it is not 0.
 
 ``--fmad=false`` (and no ``--use_fast_math``) keeps each kernel on the
 same f32 operation chain as its plain PyTorch version: torch's
