@@ -9,8 +9,10 @@ Writes patched copies of ``schedule_pack.cu`` (``COPIES``: each a list of
 exact text replacements, each of which must match once) into
 ``build/pack_ablation/``, builds them and the unpatched file, one
 ``nvcc`` per copy, all started together, and prints each copy's
-registers, shared memory and spills (``-Xptxas -v``). Then, through the
-port's own wrappers, it times each copy with CUDA events (20 launches,
+registers, shared memory and spills (``-Xptxas -v``) and, with
+``--parent``, whether K1's and K4's SASS (``cuobjdump -sass``) is the
+parent's instruction for instruction. Then, through the port's own
+wrappers, it times each copy with CUDA events (20 launches,
 twice, in forward and reverse order) and holds its outputs against the
 plain version bit for bit (the copies without slots: ``n_cand`` only) on:
 
@@ -48,6 +50,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,9 +81,9 @@ SLOT_FN = ("  // Field f of slot j, staged on chip.\n"
            "  };\n")
 OUTS = "  float* const outs[4] = {a.pk_cum, a.pk_scode, a.pk_hist, dual.pk_step};\n"
 WRITE_ROWS = (OUTS + "  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, "
-                     "lane - (threadIdx.x & 31));\n")
+                     "blockIdx.x * blockDim.x);\n")
 WRITE_ROWS_HOME = ("  float* const outs[3] = {a.pk_cum, a.pk_scode, a.pk_hist};\n"
-                   "  write_rows<3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));\n")
+                   "  write_rows<3>(stage, outs, p.n, p.k, lane - threadIdx.x);\n")
 STORE = ("        slot(0, run) = cum;\n        slot(1, run) = scode;\n"
          "        slot(2, run) = hist;\n        if (DUAL) slot(3, run) = qstep;\n")
 ZERO = ("  for (int j = cnt; j < k; ++j) {\n#pragma unroll\n"
@@ -318,6 +321,24 @@ def build_copies(parent: Path | None, names=None) -> dict:
     return libs
 
 
+def sass(so: Path) -> dict:
+    """{kernel: its SASS instructions} from ``cuobjdump -sass`` (empty
+    where cuobjdump is missing)."""
+    nvcc = build.nvcc_path()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
+    code, name = {}, None
+    for line in out.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = build._kernel_name(m.group(1))
+            code[name] = []
+        elif name is not None and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)):
+            code[name].append(m.group(1).strip())
+    return code
+
+
 @contextlib.contextmanager
 def use(lib, copy: Copy, forced: int | None, dual_table_words: int = 0,
         home_table_words: int = 0):
@@ -455,6 +476,14 @@ def main() -> int:
             f"{r['kernel']} {r['regs']} regs, {r['smem']} B static smem, spills "
             f"{r['spill_stores']}/{r['spill_loads']} B, stack {r['stack']} B" for r in rows))
     results = []
+    same_sass = {}
+    if "parent" in libs and "library" in libs:
+        new, old = (sass(OUT_DIR / f"{name}.so") for name in ("library", "parent"))
+        for kernel in ("schedule_pack_kernel<0>", "schedule_pack_kernel<1>"):
+            if kernel in new and kernel in old:
+                same_sass[kernel] = new[kernel] == old[kernel]
+                print(f"SASS of {kernel}: library {len(new[kernel])} instructions, parent "
+                      f"{len(old[kernel])}, identical {same_sass[kernel]}")
 
     args, kw, tiles = test_rays(dev, glass=False)
     tb = tiles.mini_table.numel() * 4
@@ -499,7 +528,7 @@ def main() -> int:
     out = opts.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=card, ptxas={k: v[1] for k, v in libs.items()},
-                                   sets=results), indent=1))
+                                   same_sass_as_parent=same_sass, sets=results), indent=1))
     print(f"every copy equal to its plain version: {ok}")
     print(card)
     return 0 if ok else 1

@@ -132,7 +132,7 @@ pack_by_slot_kernel(const uint8_t* __restrict__ cand, Fields f, int32_t* __restr
     for (int q = 0; q < NF; ++q) col[(q * k + j) * t] = 0.0f;
   }
   if (lane < n) count[lane] = cnt;
-  write_rows<NF>(stage, f.out, n, k, lane - (threadIdx.x & 31));
+  write_rows<NF>(stage, f.out, n, k, blockIdx.x * t);
 }
 
 __global__ void extract_chain_kernel(const int32_t* __restrict__ ptr, Fields f, int n, int chain,

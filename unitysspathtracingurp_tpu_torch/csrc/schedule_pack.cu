@@ -451,7 +451,7 @@ schedule_pack_kernel(LaneArgs a, const uint32_t* __restrict__ mini_table, DualAr
                            stage + threadIdx.x);
   }
   float* const outs[4] = {a.pk_cum, a.pk_scode, a.pk_hist, dual.pk_step};
-  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));
+  write_rows<DUAL ? 4 : 3>(stage, outs, p.n, p.k, blockIdx.x * blockDim.x);
 }
 
 // K6's block: HOME_BLOCK_ROWS screen rows of one 8 x 128-px lane block,
@@ -479,7 +479,7 @@ schedule_pack_home_kernel(LaneArgs a, const uint32_t* __restrict__ mini_table,
                          by, bx, home_out};
   pack_lane<false, true>(lane, a, mini_table, p, none, home, stage + threadIdx.x);
   float* const outs[3] = {a.pk_cum, a.pk_scode, a.pk_hist};
-  write_rows<3>(stage, outs, p.n, p.k, lane - (threadIdx.x & 31));
+  write_rows<3>(stage, outs, p.n, p.k, lane - threadIdx.x);
 }
 
 // The kernel's dynamic shared memory above 48 KB, and the scalars into

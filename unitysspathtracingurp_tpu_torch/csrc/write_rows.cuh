@@ -4,26 +4,28 @@
 // A block stages its lanes' slots in shared memory laid out
 // [field][K][blockDim] (field f, slot j of thread t at
 // stage[(f * k + j) * blockDim + t]), each thread its own column, with
-// its slots past its count zeroed. The warp's 32 threads hold 32
-// contiguous lanes from `warp_lane0` on. Lane L of the warp copies
-// threads 4 (L % 8) .. 4 (L % 8) + 3 of rows j = L / 8, L / 8 + 4, ...
-// of each field: one 16-byte shared load (8 lanes read 128 contiguous
-// bytes: no bank conflict) and one 16-byte store (8 lanes write 128
-// contiguous bytes of one row). Scalar stores where the row is not
-// 16-byte aligned (n % 4 != 0) and past the last lane.
+// its slots past its count zeroed. Thread t of the warp holds lane
+// lane_base + t (K1, K3, K4: the block's first lane; K6, whose block
+// spans screen rows, passes each warp's own base, lane - threadIdx.x).
+// Lane L of the warp copies threads 4 (L % 8) .. 4 (L % 8) + 3 of rows
+// j = L / 8, L / 8 + 4, ... of each field: one 16-byte shared load (8
+// lanes read 128 contiguous bytes: no bank conflict) and one 16-byte
+// store (8 lanes write 128 contiguous bytes of one row). Scalar stores
+// where the row is not 16-byte aligned (n % 4 != 0) and past the last
+// lane.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 template <int NF>
-__device__ __forceinline__ void write_rows(const float* stage, float* const* outs, int n, int k,
-                                           int warp_lane0) {
+__device__ __forceinline__ void write_rows(const float* stage, float* const* outs, int n,
+                                           int k, int lane_base) {
   __syncwarp();  // the warp's lanes have staged every slot
   const int wl = threadIdx.x & 31;
   const int src = (threadIdx.x & ~31) + 4 * (wl & 7);
   const int t = blockDim.x;
-  const int lane0 = warp_lane0 + 4 * (wl & 7);
+  const int lane0 = lane_base + src;
   const bool vec = (n & 3) == 0 && lane0 + 3 < n;
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
