@@ -17,30 +17,45 @@ Phases (any failure exits non-zero and prints no result line):
      (PTConfig.pallas_extract: K5 + row gather + K7) against R1, bit for
      bit, from the zero state, from K6's state and on the dual layout
      with insideObject 0, 1 and 2, with K5 and K7 against their plain
-     versions on the inputs the unfused rounds gave them;
-  4. one whole headline frame, one whole dual frame and one whole home
-     frame, with the kernels against the plain path; the home march
-     against the non-home march at 1080p bounce 0 with 16 rounds; the
-     headline and dual frames with pallas_extract against the default
-     frames, bit for bit;
-  5. the four main paths, each with the launch counts set to 0 just
-     before and read just after it: Renderer.render_frame, OFFLINE,
-     1920x1080, (a) the headline BoxScene with
-     PTConfig.boxscene_headline(), (b) the glass BoxScene with
-     refraction + DepthNormals thickness, (c) the headline with the
-     home prefix and hiz_home_round_cap=0.4 and (d) the headline with
-     pallas_extract (the unfused rounds); 1 warm-up + timed frames;
-     each followed by a torch.profiler report of two more frames (a
-     report, never a gate);
-  6. a report, whose gates are the diagnostic march's launch counts and
-     K3's bit identity: the diagnostic march (K2 + K3, counts set to 0
-     before and read after) through a 1080p headline frame with a
-     torch.profiler report of two more, K3 on its own inputs in every
-     bounce of that march, its bounce-0 locality and round counters
-     with and without the home prefix, R1 on every bounce of the
-     headline and home frames and R1-dual on every bounce of the dual
-     frame (their own inputs, with bound, links a lane and warp
-     efficiency), and the home prefix x round budget A/B;
+     versions on the inputs the unfused rounds gave them; then P1 (the
+     parity march) against its plain version, bit for bit on all five
+     outputs, at 256^2 and 1080p on the BoxScene rays (zero and random
+     per-lane dither), on the glass box with refraction + DepthNormals
+     and insideObject 0, 1 and 2, and at 256^2 in the refraction-only
+     and backface-only layouts; K1, K4 and K6 with a random per-lane
+     dither at 1080p, bit for bit;
+  4. one whole frame of each of the headline, dual, home, parity
+     headline, parity dual, spp-2 dithered headline and oct-normals +
+     forward-only headline, with the kernels against the plain path; the
+     home march against the non-home march at 1080p bounce 0 with 16
+     rounds; the headline and dual frames with pallas_extract against
+     the default frames, bit for bit;
+  5. the main paths, each with the launch counts set to 0 just before
+     and read just after it: Renderer.render_frame, OFFLINE, 1920x1080,
+     (a) the headline BoxScene with PTConfig.boxscene_headline(), (b)
+     the glass BoxScene with refraction + DepthNormals thickness, (c)
+     the headline with the home prefix and hiz_home_round_cap=0.4, (d)
+     the headline with pallas_extract (the unfused rounds), (e) the
+     parity headline (kernel "xla": P1, 4 launches a frame), (f) the
+     parity dual frame (3), and the headline at 2 samples a pixel with
+     step dithering (hiz: 8 K1 and 8 R1 launches a frame); 1 warm-up +
+     timed frames; each followed by a torch.profiler report of two more
+     frames (a report, never a gate);
+  6. a report, whose gates are the diagnostic march's launch counts,
+     K3's and P1's bit identity and the golden regression: the
+     diagnostic march (K2 + K3, counts set to 0 before and read after)
+     through a 1080p headline frame with a torch.profiler report of two
+     more, K3 on its own inputs in every bounce of that march, its
+     bounce-0 locality and round counters with and without the home
+     prefix, R1 on every bounce of the headline and home frames and
+     R1-dual on every bounce of the dual frame (their own inputs, with
+     bound, links a lane and warp efficiency), the home prefix x round
+     budget A/B; P1 on its own inputs in every bounce of the parity
+     headline frame (ms, bound, steps a lane, warp efficiency) beside K1
+     + R1 on the hiz frame's bounce 0; the 256^2 golden through P1 (512
+     frames, 1 bounce, pooled relative RMSE < 0.035 against
+     fixtures/box256_golden_cpu.npz); the hiz-vs-parity deviation of the
+     1080p headline and dual frames (128 frames each, common seeds);
 then one JSON line of per-kernel numbers, the card line again, and the
 last line {"ok": true, "device": {...}}.
 
@@ -51,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -103,6 +119,10 @@ KERNELS = {
         source="unitysspathtracingurp_tpu_torch/csrc/pallas_gather.cu",
         replaces="unitysspathtracingurp_tpu/ops/pallas_gather.py:127",
     ),
+    "ray_march": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/ray_march.cu",
+        replaces="unitysspathtracingurp_tpu/ops/pathtrace.py:79",
+    ),
 }
 # The kernels each path launches (the others must stay at 0 there).
 PATHS = {
@@ -111,7 +131,13 @@ PATHS = {
     "home": ("schedule_pack_home", "schedule_pack", "resolve_rounds"),
     "diagnostic": ("broadcast_table_select", "pack_by_slot", "resolve_rounds"),
     "extract": ("schedule_pack", "extract_chain", "rowwise_select"),
+    "parity": ("ray_march",),
+    "parity_dual": ("ray_march",),
+    "dither2": ("schedule_pack", "resolve_rounds"),
 }
+# The G-buffer P1's bound counts: 4 B a texel of each depth image in use.
+P1_LANE_IN = 12 + 12 + 12 + 4 + 4 + 4  # pos, dir, view dir, inside, dither, large step
+P1_LANE_OUT = 6 * 4 + 2  # position, distance, uv; hit and back-hit bytes
 
 
 class GateError(RuntimeError):
@@ -191,9 +217,12 @@ def plain_kernels():
             setattr(pathtrace_hiz, n, fn)
 
 
+@functools.lru_cache(maxsize=None)
 def boxscene(h, w, dev, glass=False):
     """BoxScene G-buffer + camera; ``glass``: the IOR-1.45 sphere and no
-    mirror, with the backface pass (the refraction configuration)."""
+    mirror, with the backface pass (the refraction configuration). Built
+    once per size and scene: the host rasterizes 1080p in seconds, and
+    nothing changes a G-buffer in place."""
     from unitysspathtracingurp_tpu_torch.models import fixtures, scene
 
     cam = fixtures.box_scene_camera(h, w, device=dev)
@@ -961,6 +990,342 @@ def diagnostic_report(dev, card):
     return counts
 
 
+def random_dither(shape, dev, seed=5):
+    """A random per-lane step dither in [-0.1, 0.1], as step dithering
+    gives at intensity 1."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(shape, generator=g) * 0.2 - 0.1).to(dev)
+
+
+def p1_call(gb, cam, x, settings, inside=0.0, dither=None):
+    """The arguments of a parity-march call on ``march_inputs`` rays."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+
+    ins = torch.full_like(x["scene_dist"], float(inside))
+    dit = torch.zeros_like(x["scene_dist"]) if dither is None else dither
+    return (PTConfig(), settings, settings.variants(), gb, cam, x["origin"], x["d"], ins, dit,
+            -x["view_dir"], x["scene_dist"], x["alive"])
+
+
+def p1_reference(args):
+    """P1's plain version on ``args``: its output, each lane's steps and
+    P1's bound on this run's data. Every lane reads its alive byte and
+    writes its outputs; an alive lane reads its ray; each depth image
+    that some alive lane's layout reads comes from memory at most once
+    (they stay in L2); each step a lane runs costs STEP_OPS."""
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+
+    _, _, variants, gb, _, pos, _, inside, _, _, _, alive = args
+    steps = []
+    ref = pt.ray_march_ref(*args, steps_out=steps)
+    steps = steps[0]
+    layer1, opaque, back = pt.march_depth_images(gb, variants)
+    ins = inside.expand(alive.shape)[alive]
+    # Layer 1 is read by lanes with insideObject 0 (by every lane without
+    # refraction), the opaque layer by the others, the back layer by all.
+    used = (opaque is None or bool((ins == 0.0).any()),
+            opaque is not None and bool((ins != 0.0).any()), back is not None)
+    image_bytes = sum(used) * layer1.numel() * 4
+    lanes, n_alive = alive.numel(), float(alive.sum())
+    b = bound(lanes * (1 + P1_LANE_OUT) + n_alive * P1_LANE_IN + image_bytes,
+              float(steps.sum()) * STEP_OPS)
+    return ref, steps, b
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.float32:
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def check_p1(label, args):
+    """P1 against its plain version on ``args``, every output bit for bit."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+
+    got = pt.ray_march(*args)
+    ref, steps, b = p1_reference(args)
+    torch.cuda.synchronize()
+    equal = all(bits_equal(a, r) for a, r in zip(got, ref))
+    err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+    print(f"phase 3 P1 ray_march {label}: all 5 outputs equal {equal}, max abs err {err:.3e}, "
+          f"hits {ref.hit.float().mean().item():.4f}, back hits "
+          f"{ref.is_back_hit.float().mean().item():.4f}, "
+          f"{float(steps.sum()) / max(steps.numel(), 1):.3f} steps a lane, warp efficiency "
+          f"{warp_efficiency(steps):.4f}")
+    gate(equal, f"P1 bit-exact against its plain version ({label})")
+    gate(bool(ref.hit.any()), f"P1 hits something ({label})")
+    return ref, steps, b, err
+
+
+def march_agreement(parity, hiz, alive, gh, gw) -> str:
+    """How far the hiz march's result agrees with the parity march's on
+    the same rays of a gh x gw G-buffer: hit / miss over the alive lanes,
+    and the hit texel where both hit."""
+    from unitysspathtracingurp_tpu_torch.gbuffer import uv_to_pixel
+
+    alive = alive.expand(parity.hit.shape)
+    both = parity.hit & hiz.hit
+    same = [a == b for a, b in zip(uv_to_pixel(parity.uv, gh, gw), uv_to_pixel(hiz.uv, gh, gw))]
+    return (f"hit agreement {(parity.hit == hiz.hit)[alive].float().mean().item():.4f} of alive "
+            f"lanes (hits: P1 {parity.hit[alive].float().mean().item():.4f}, hiz "
+            f"{hiz.hit[alive].float().mean().item():.4f}), same hit texel "
+            f"{(same[0] & same[1])[both].float().mean().item():.4f} where both hit")
+
+
+def check_march_kernels(h, w, dev, timing: bool):
+    """Phase 3, the parity march at one size: P1 against its plain version
+    on BoxScene bounce-0 rays (zero and random per-lane dither), on the
+    glass box in the refraction + backface layout with insideObject 0, 1
+    and 2, and (256^2) in the refraction-only and backface-only layouts."""
+    from unitysspathtracingurp_tpu_torch.config import PTSettings, ThicknessMode
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+
+    gb, cam = boxscene(h, w, dev)
+    x = march_inputs(gb, cam)
+    s = PTSettings(maximum_steps=24)
+    args = p1_call(gb, cam, x, s)
+    ref, steps, b, err = check_p1(f"{w}x{h} plain", args)
+    hiz = ph.ray_march_hiz(*args, tiles=ph.build_tiles_for(gb, cam, s.variants()))
+    print(f"phase 3 hiz march ({ph.default_rounds(h, w)} rounds) vs P1 {w}x{h} on the same rays: "
+          f"{march_agreement(ref, hiz, x['alive'], h, w)}")
+    out = {"ray_march": {"max_abs_err": err}}
+    if timing:
+        out["ray_march"].update(b)
+        out["ray_march"]["ms"] = cuda_ms(lambda: pt.ray_march(*args), 20)
+        out["ray_march"]["plain_ms"] = cuda_ms(lambda: pt.ray_march_ref(*args), 3)
+        print(f"phase 3 P1 {w}x{h}: {out['ray_march']['ms']:.4f} ms, plain PyTorch "
+              f"{out['ray_march']['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}; share {b['bound_ms'] / out['ray_march']['ms']:.3f})")
+    check_p1(f"{w}x{h} plain, random dither",
+             p1_call(gb, cam, x, s, dither=random_dither((h, w), dev)))
+    ggb, gcam = boxscene(h, w, dev, glass=True)
+    gx = march_inputs(ggb, gcam)
+    glass = dual_settings()
+    for inside in (0, 1, 2):
+        _, _, _, e = check_p1(f"{w}x{h} glass, refraction + backface, inside {inside}",
+                              p1_call(ggb, gcam, gx, glass, inside))
+        out["ray_march"]["max_abs_err"] = max(out["ray_march"]["max_abs_err"], e)
+    if h == 256:
+        check_p1(f"{w}x{h} glass, refraction only, inside 1",
+                 p1_call(ggb, gcam, gx, PTSettings(maximum_steps=24, support_refraction=True), 1))
+        check_p1(f"{w}x{h} glass, backface only",
+                 p1_call(ggb, gcam, gx, PTSettings(
+                     maximum_steps=24, accurate_thickness=ThicknessMode.DEPTH_ONLY)))
+    return out
+
+
+def check_dither_kernels(dev):
+    """Phase 3: K1, K4 (insideObject 0) and K6 with a random per-lane
+    dither at 1080p, bit for bit against their plain versions."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_home_strips
+
+    n = H_FULL * W_FULL
+    dither = random_dither(n, dev)
+    for glass in (False, True):
+        gb, cam = boxscene(H_FULL, W_FULL, dev, glass=glass)
+        x = march_inputs(gb, cam)
+        s = dual_settings() if glass else headline_settings()
+        tiles = ph.build_tiles_for(gb, cam, s.variants())
+        large = (s.step_size + (20.0 - s.step_size) * x["scene_dist"] * 0.001).reshape(n)
+        is_back = ((x["d"] * -x["view_dir"]).sum(-1) > 0.0).reshape(n)
+        lane = (x["origin"].reshape(n, 3), x["d"].reshape(n, 3), dither, large,
+                x["alive"].reshape(n))
+        scalars = fs.schedule_scalars(cam)
+        kw = fs.march_kwargs(PTConfig(), tiles, 24)
+        if glass:
+            combo = torch.zeros(n, dtype=torch.int32, device=dev)
+            a = (*lane, combo, is_back, tiles.mini_table, tiles.bmax_table, scalars)
+            kw = dict(kw, chunks_per_combo=tiles.chunks_per_combo)
+            runs = {"K4": (fs.schedule_pack_dual, fs.schedule_pack_dual_ref, a, kw)}
+        else:
+            strips = build_home_strips(tiles, H_FULL, W_FULL)
+            runs = {
+                "K1": (fs.schedule_pack, fs.schedule_pack_ref,
+                       (*lane, is_back, tiles.mini_table, scalars), kw),
+                "K6": (fs.schedule_pack_home, fs.schedule_pack_home_ref,
+                       (*lane, is_back, tiles.mini_table, strips, scalars),
+                       dict(kw, home_shape=(H_FULL, W_FULL))),
+            }
+        for name, (fn, ref_fn, a, k) in runs.items():
+            got, ref = fn(*a, **k), ref_fn(*a, **k)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+            print(f"phase 3 {name} {W_FULL}x{H_FULL} with a random per-lane dither: all "
+                  f"{len(ref)} outputs equal {equal}, lanes with candidates "
+                  f"{(ref[3 if name != 'K4' else 4] > 0).float().mean().item():.4f}")
+            gate(equal, f"{name} bit-exact with a non-zero dither")
+
+
+def parity_report(dev, card):
+    """Phase 6: P1 on its own inputs in every bounce of the 1080p parity
+    headline frame (each bit for bit against its plain version: a gate),
+    beside K1 + R1 on the hiz headline frame's bounce-0 inputs."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+
+    s, cfg, bde, _ = path_config("parity")
+    gb, cam = path_scene("parity", H_FULL, W_FULL, dev)
+    probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+    calls = []
+
+    def spy(*a, **kw):
+        calls.append(a)
+        return pt.ray_march(*a, **kw)
+
+    pt.trace_frame(gb, cam, probes, s, cfg, s.variants(), 99, march_fn=spy,
+                   back_depth_enabled=bde)
+    torch.cuda.synchronize()
+    tiles = ph.build_tiles_for(gb, cam, s.variants())
+    p1_ms = []
+    for b, a in enumerate(calls):
+        got = pt.ray_march(*a)
+        ref, steps, b_ = p1_reference(a)
+        torch.cuda.synchronize()
+        equal = all(bits_equal(g, r) for g, r in zip(got, ref))
+        p1_ms.append(cuda_ms(lambda: pt.ray_march(*a), 20))
+        n, alive = steps.numel(), float(a[-1].sum())
+        print(f"phase 6 P1 on the parity headline frame's bounce {b} ({n} lanes, {alive:.0f} "
+              f"alive): equal to the plain version {equal}, {p1_ms[-1]:.4f} ms, bound "
+              f"{b_['bound_ms']:.4f} ms (share {b_['bound_ms'] / p1_ms[-1]:.3f}), "
+              f"{float(steps.sum()) / n:.3f} steps a lane, {float(steps.sum()) / max(alive, 1):.3f}"
+              f" an alive lane, warp efficiency {warp_efficiency(steps):.4f}, hits "
+              f"{ref.hit.float().mean().item():.4f} [{card}]")
+        gate(equal, f"P1 bit-exact on the parity frame's bounce {b}")
+        print(f"phase 6 hiz march (4 rounds) vs P1 on the parity headline frame's bounce {b}: "
+              f"{march_agreement(ref, ph.ray_march_hiz(*a, tiles=tiles), a[-1], H_FULL, W_FULL)}")
+    k1_a, k1_kw = frame_calls(dev, "headline", "schedule_pack")[0][0]
+    r1_a, r1_kw = frame_calls(dev, "headline", "resolve_rounds")[0][0]
+    k1_ms = cuda_ms(lambda: fs.schedule_pack(*k1_a, **k1_kw), 20)
+    r1_ms = cuda_ms(lambda: ph.resolve_rounds(*r1_a, **r1_kw), 20)
+    print(f"phase 6 bounce 0: P1 {p1_ms[0]:.4f} ms on the parity headline frame; K1 "
+          f"{k1_ms:.4f} + R1 {r1_ms:.4f} = {k1_ms + r1_ms:.4f} ms on the hiz headline frame; "
+          f"P1 over the frame's {len(p1_ms)} bounces {sum(p1_ms):.4f} ms [{card}]")
+
+
+def golden_gate(dev, card, frames=512):
+    """Phase 6 gate: tests/test_e2e.py:63-104 through P1 on the card, 512
+    frames at 256^2, 1 bounce, against the committed CPU golden (4096
+    frames of the JAX package), pooled 4x4 relative RMSE < 0.035."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings
+    from unitysspathtracingurp_tpu_torch.models import fixtures, scene
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.utils.metrics import relative_rmse
+
+    golden = np.load(Path(__file__).resolve().parent / "fixtures" / "box256_golden_cpu.npz")
+    r = 256
+    cam = fixtures.box_scene_camera(r, r, device=dev)
+    gb = fixtures.rasterize_gbuffers(scene.build_box_scene(with_mirror=False), cam, r, r,
+                                     device=dev)
+    probes = ProbeSet(probe0=constant_probe([0.0, 0.0, 0.0], device=dev))
+    s = PTSettings(maximum_depth=1, samples_per_pixel=1, maximum_steps=24, dithering=False)
+    t0 = time.perf_counter()
+    acc = torch.zeros((r, r, 3), dtype=torch.float64, device=dev)
+    for i in range(frames):
+        acc += pt.trace_frame(gb, cam, probes, s, PTConfig(), s.variants(), 33 * i % 64000,
+                              march_fn=pt.ray_march)
+    acc = (acc / frames).cpu().numpy()
+    secs = time.perf_counter() - t0
+
+    def pool(x):
+        return x.reshape(r // 4, 4, r // 4, 4, 3).mean((1, 3))
+
+    pmask = gb.depth.cpu().numpy().reshape(r // 4, 4, r // 4, 4).min((1, 3)) > 0
+    rel = relative_rmse(pool(acc), pool(golden["image"]), pmask)
+    print(f"phase 6 golden: {frames} frames at {r}x{r}, 1 bounce, through P1 against "
+          f"fixtures/box256_golden_cpu.npz: pooled relative RMSE {rel:.5f} (gate < 0.035), "
+          f"{secs:.1f} s [{card}]")
+    gate(bool(rel < 0.035), f"golden regression through P1: pooled relative RMSE {rel:.5f}")
+
+
+def deviation(img, ref, depth) -> str:
+    """The metrics of scripts/quality_headline.py:90-125: pooled (4x4) and
+    per-pixel relative RMSE over pixels with opaque depth, the mean
+    bias, and the share of pooled cells (of all) over 1% and 5%."""
+    from unitysspathtracingurp_tpu_torch.utils.metrics import relative_rmse
+
+    h, w = depth.shape
+    mask = depth > 0
+
+    def pool(x):
+        return x.reshape(h // 4, 4, w // 4, 4, 3).mean((1, 3))
+
+    pmask = depth.reshape(h // 4, 4, w // 4, 4).min((1, 3)) > 0
+    pooled = relative_rmse(pool(img), pool(ref), pmask)
+    per_px = relative_rmse(img, ref, mask)
+    bias = (img[mask].mean() - ref[mask].mean()) / ref[mask].mean()
+    d = ((pool(img) - pool(ref)) ** 2).sum(-1) ** 0.5
+    rel = (d / ((pool(ref) ** 2).sum(-1) ** 0.5 + 1e-6)) * pmask
+    return (f"pooled relative RMSE {pooled:.5f}, per-pixel {per_px:.5f}, mean bias {bias:+.5f}, "
+            f"pooled cells over 1% {float((rel > 0.01).mean()):.5f}, over 5% "
+            f"{float((rel > 0.05).mean()):.5f}")
+
+
+def deviation_report(dev, card, frames=128):
+    """Phase 6: the converged hiz-vs-parity deviation of
+    scripts/quality_headline.py:90-125 on the port, for the 1080p
+    headline and the dual frame: both marches accumulate ``frames``
+    frames of the same seed stream (frame indices 33 i mod 64000), so the
+    Monte Carlo noise cancels in the difference; pooled (4x4) and
+    per-pixel relative RMSE over pixels with opaque depth, the mean bias
+    and the share of pooled cells over 1% / 5%."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+
+    for hiz, parity in (("headline", "parity"), ("dual", "parity_dual")):
+        s, _, _, _ = path_config(hiz)
+        gb, cam = path_scene(hiz, H_FULL, W_FULL, dev)
+        probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+        tiles = ph.build_tiles_for(gb, cam, s.variants())
+        t0 = time.perf_counter()
+        acc = {k: torch.zeros((H_FULL, W_FULL, 3), dtype=torch.float64, device=dev)
+               for k in (hiz, parity)}
+        for i in range(frames):
+            fi = 33 * i % 64000
+            acc[hiz] += trace_path(hiz, gb, cam, probes, fi, tiles=tiles)
+            acc[parity] += trace_path(parity, gb, cam, probes, fi)
+        img_h, img_x = ((acc[k] / frames).cpu().numpy() for k in (hiz, parity))
+        secs = time.perf_counter() - t0
+        depth = gb.depth.cpu().numpy()
+        print(f"phase 6 hiz-vs-parity deviation, {PATH_NAMES.get(hiz, hiz)} {W_FULL}x{H_FULL}, "
+              f"{frames} frames each, common seed stream: {deviation(img_h, img_x, depth)} "
+              f"({secs:.1f} s) [{card}]")
+        if hiz == "headline":
+            # The floor: the parity march against itself on an independent
+            # seed stream (frame indices 33 i + 17), i.e. Monte Carlo noise.
+            other = torch.zeros_like(acc[parity])
+            for i in range(frames):
+                other += trace_path(parity, gb, cam, probes, (33 * i + 17) % 64000)
+            print(f"phase 6 parity-vs-parity on independent seed streams, "
+                  f"{PATH_NAMES.get(hiz, hiz)}, {frames} frames each (the noise floor): "
+                  f"{deviation((other / frames).cpu().numpy(), img_x, depth)} [{card}]")
+
+
 def headline_settings():
     from unitysspathtracingurp_tpu_torch.config import DenoiserType, PTSettings
 
@@ -978,10 +1343,12 @@ def home_config(**kw):
 
 
 def path_config(path: str):
-    """(settings, cfg, back_depth_enabled, glass) of a main path."""
+    """(settings, cfg, back_depth_enabled, glass) of a main path (or of a
+    phase-4 frame: "octfwd", the headline with oct-encoded normals and
+    forward-only objects)."""
     from unitysspathtracingurp_tpu_torch.config import PTConfig
 
-    if path == "dual":
+    if path in ("dual", "parity_dual"):
         s = dual_settings(maximum_samples=512)
         return s, PTConfig(), int(s.accurate_thickness.value), True
     if path == "home":
@@ -989,7 +1356,50 @@ def path_config(path: str):
     if path == "extract":
         return (headline_settings(),
                 dataclasses.replace(PTConfig.boxscene_headline(), pallas_extract=True), 0, False)
+    if path == "dither2":
+        return (dataclasses.replace(headline_settings(), samples_per_pixel=2, dithering=True),
+                PTConfig.boxscene_headline(), 0, False)
+    if path == "octfwd":
+        return (dataclasses.replace(headline_settings(), gbuffer_normals_oct=True,
+                                    ignore_forward_objects=True),
+                PTConfig.boxscene_headline(), 0, False)
     return headline_settings(), PTConfig.boxscene_headline(), 0, False
+
+
+def path_kernel(path: str) -> str:
+    """The Renderer's ``kernel`` of a path: the parity march (P1) on the
+    parity paths, the hiz march on the others."""
+    return "xla" if path.startswith("parity") else "hiz"
+
+
+def path_scene(path: str, h, w, dev):
+    """The G-buffer and camera of a path. "octfwd" stores oct-encoded
+    normals in GBuffer2 and makes a block of the left wall and floor
+    forward-only (smoothness 0: BoxScene has no such surface)."""
+    from unitysspathtracingurp_tpu_torch.gbuffer import pack_normal_oct_quad
+
+    gb, cam = boxscene(h, w, dev, glass=path_config(path)[3])
+    if path == "octfwd":
+        smooth = gb.smoothness.clone()
+        smooth[h // 16:h * 7 // 16, w // 32:w * 3 // 8] = 0.0
+        gb = dataclasses.replace(gb, normal=pack_normal_oct_quad(gb.normal), smoothness=smooth)
+    return gb, cam
+
+
+def trace_path(path: str, gb, cam, probes, frame_index, plain=False, tiles=None):
+    """One pass-0 frame of ``path`` on the kernels, or with ``plain`` on
+    their plain PyTorch versions."""
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+    from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
+
+    s, cfg, bde, _ = path_config(path)
+    if path_kernel(path) == "xla":
+        return pt.trace_frame(gb, cam, probes, s, cfg, s.variants(), frame_index,
+                              march_fn=pt.ray_march_ref if plain else pt.ray_march,
+                              back_depth_enabled=bde)
+    with plain_kernels() if plain else contextlib.nullcontext():
+        return trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), frame_index,
+                               back_depth_enabled=bde, tiles=tiles)
 
 
 def check_frame(h, w, dev, path: str):
@@ -997,16 +1407,12 @@ def check_frame(h, w, dev, path: str):
     import torch
 
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
-    from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
     from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
 
-    s, cfg, bde, glass = path_config(path)
-    gb, cam = boxscene(h, w, dev, glass=glass)
+    gb, cam = path_scene(path, h, w, dev)
     probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
-    fast = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99, back_depth_enabled=bde)
-    with plain_kernels():
-        plain = trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), 99,
-                                back_depth_enabled=bde)
+    fast = trace_path(path, gb, cam, probes, 99)
+    plain = trace_path(path, gb, cam, probes, 99, plain=True)
     torch.cuda.synchronize()
     gate(bool(torch.isfinite(fast).all()), "frame has non-finite values")
     non_sky = (gb.layer1_depth() != 0.0).cpu().numpy()
@@ -1044,6 +1450,16 @@ def check_extract_frame(h, w, dev, path: str):
     gate(equal, f"extract frame bit-equal to the default frame ({path})")
 
 
+PATH_NAMES = {
+    "dual": "dual (glass, refraction + DepthNormals)",
+    "home": "home (headline + home prefix, hiz_home_round_cap 0.4)",
+    "extract": "extract (headline + pallas_extract: unfused rounds, K5 + K7)",
+    "parity": "parity headline (kernel xla: P1)",
+    "parity_dual": "parity dual (kernel xla: P1, glass, refraction + DepthNormals)",
+    "dither2": "headline, spp 2, step dithering (hiz)",
+}
+
+
 def main_path(dev, card, path: str):
     """Phase 5: the Renderer at 1080p, offline; the launch counts are
     set to 0 just before the path and read just after it."""
@@ -1055,15 +1471,16 @@ def main_path(dev, card, path: str):
     from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import default_rounds
     from unitysspathtracingurp_tpu_torch.utils.metrics import mrays_per_sec
 
-    s, cfg, _, glass = path_config(path)
-    gb, cam = boxscene(H_FULL, W_FULL, dev, glass=glass)
+    s, cfg, _, _ = path_config(path)
+    gb, cam = path_scene(path, H_FULL, W_FULL, dev)
     r = Renderer(s, H_FULL, W_FULL, cfg=cfg,
-                 probes=ProbeSet(probe0=constant_probe(PROBE, device=dev)), device=dev)
-    # Launches per frame: the home prefix runs on bounce 0 only, the
-    # plain front half on the others; R1 once per bounce; the unfused
-    # rounds launch K5 and K7 once per round.
+                 probes=ProbeSet(probe0=constant_probe(PROBE, device=dev)),
+                 kernel=path_kernel(path), device=dev)
+    # Launches per frame: each march kernel once per bounce and sample;
+    # the home prefix runs on bounce 0 only, the plain front half on the
+    # others; the unfused rounds launch K5 and K7 once per round.
     bounces = s.maximum_depth
-    expect = dict.fromkeys(PATHS[path], bounces)
+    expect = dict.fromkeys(PATHS[path], bounces * s.samples_per_pixel)
     if path == "home":
         expect.update(schedule_pack_home=1, schedule_pack=bounces - 1)
     if path == "extract":
@@ -1091,11 +1508,8 @@ def main_path(dev, card, path: str):
     gate(bool(torch.isfinite(image).all()), "accumulated image not finite")
     gate(float(r.offline_state.accum.mean()) > 0.0, "accumulated image is black")
     sky = float((gb.layer1_depth() == 0.0).float().mean())
-    rate = mrays_per_sec(H_FULL, W_FULL, 1, s.maximum_depth, dt, sky)
-    name = {"dual": "dual (glass, refraction + DepthNormals)",
-            "home": "home (headline + home prefix, hiz_home_round_cap 0.4)",
-            "extract": "extract (headline + pallas_extract: unfused rounds, K5 + K7)",
-            }.get(path, path)
+    rate = mrays_per_sec(H_FULL, W_FULL, s.samples_per_pixel, s.maximum_depth, dt, sky)
+    name = PATH_NAMES.get(path, path)
     print(f"phase 5 {name} main path Renderer.render_frame OFFLINE {W_FULL}x{H_FULL} "
           f"{s.maximum_depth} bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
           f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s, "
@@ -1169,6 +1583,9 @@ def main() -> int:
               f"shared, spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
               f"stack {r['stack']} B")
 
+    def mark(phase):
+        print(f"chip_smoke: {phase} done at {time.perf_counter() - t0:.1f} s")
+
     stats = {}
     for h, w in ((256, 256), (H_FULL, W_FULL)):
         stats.update(check_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
@@ -1178,21 +1595,32 @@ def main() -> int:
         stats.update(check_home_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     for h, w in ((256, 256), (H_FULL, W_FULL)):
         stats.update(check_gather_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
-    for path in ("headline", "dual", "home"):
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        stats.update(check_march_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
+    check_dither_kernels(dev)
+    mark("phase 3")
+    for path in ("headline", "dual", "home", "parity", "parity_dual", "dither2", "octfwd"):
         for h, w in ((256, 256), (H_FULL, W_FULL)):
             check_frame(h, w, dev, path)
     check_home_march(dev)
     for path in ("headline", "dual"):
         for h, w in ((256, 256), (H_FULL, W_FULL)):
             check_extract_frame(h, w, dev, path)
+    mark("phase 4")
     launches = {}
-    for path in ("headline", "dual", "home", "extract"):
+    for path in ("headline", "dual", "home", "extract", "parity", "parity_dual", "dither2"):
         counts = main_path(dev, card, path)
         for name in PATHS[path]:
             launches.setdefault(name, counts.get(name, 0))
+    mark("phase 5")
     counts = diagnostic_report(dev, card)
     for name in ("broadcast_table_select", "pack_by_slot"):
         launches[name] = counts[name]
+    mark("phase 6 diagnostic march")
+    parity_report(dev, card)
+    golden_gate(dev, card)
+    deviation_report(dev, card)
+    mark("phase 6")
 
     rows = [
         dict(name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],

@@ -1,6 +1,7 @@
 """The CUDA kernels (K1, R1, K4, R1's dual mode, K6, K2, K3, R1's
-state-in form, K5 and K7) against their plain PyTorch versions, and the
-unfused resolve rounds (K5 + K7) against R1, on the card.
+state-in form, K5, K7 and P1, the parity march) against their plain
+PyTorch versions, and the unfused resolve rounds (K5 + K7) against R1,
+on the card.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device. On a
 machine with an NVIDIA GPU (no JAX needed):
@@ -23,6 +24,7 @@ from unitysspathtracingurp_tpu_torch.models import fixtures, scene
 from unitysspathtracingurp_tpu_torch.camera import linear_eye_depth, pixel_uv, world_from_uv_depth
 from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
 from unitysspathtracingurp_tpu_torch.ops import pallas_gather as pg
+from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
 from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
 from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_depth_tiles, build_home_strips
 
@@ -65,8 +67,14 @@ def case():
 # (the padding is never indexed), so the budget picks the 512-thread
 # block of 112 KB that the 1080p main path launches, above the 48 KB
 # that needs cudaFuncSetAttribute. K4 stages 32 KB in 128-thread blocks
-# at every size.
-PACK_CASES = ("random", "s_max 8", "s_max 40", "ragged", "dead", "full")
+# at every size. "dither": a random per-lane step dither in [-0.1, 0.1],
+# as step dithering gives (intensity 1).
+PACK_CASES = ("random", "s_max 8", "s_max 40", "ragged", "dead", "full", "dither")
+
+
+def random_dither(n, dev, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(n, generator=g) * 0.2 - 0.1).to(dev)
 
 
 def pack_case(args, kw, tiles, case: str, flag: int):
@@ -81,6 +89,8 @@ def pack_case(args, kw, tiles, case: str, flag: int):
         args[:flag + 1] = [a[:n - 77] for a in args[:flag + 1]]
     elif case == "dead":
         args[4] = torch.zeros_like(args[4])
+    elif case == "dither":
+        args[2] = random_dither(n, args[2].device)
     elif case == "full":
         args[flag] = torch.ones_like(args[flag])
         args[3] = torch.full_like(args[3], 0.1)
@@ -520,3 +530,104 @@ def test_unfused_rounds_equal_r1_kernel(case, dual_case):
     assert got[0].mean() > 0.1 and dgot[0].mean() > 0.02
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert torch.equal(dgot.view(torch.int32), dref.view(torch.int32))
+
+
+def test_schedule_pack_home_kernel_dither_bit_exact(home_case):
+    """K6 with a random per-lane step dither, then R1 from its state."""
+    tiles, args, kw, r_kw = home_case
+    args = list(args)
+    args[2] = random_dither(args[0].shape[0], args[0].device)
+    got = fs.schedule_pack_home(*args, **kw)
+    ref = fs.schedule_pack_home_ref(*args, **kw)
+    plain = fs.schedule_pack_home_ref(*home_case[1], **kw)
+    torch.cuda.synchronize()
+    assert not torch.equal(ref[0], plain[0])  # the dither moves the candidates
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    state = torch.cat([torch.zeros_like(ref[4][:1]), ref[4]])
+    r_args = (*ref[:4], args[0], args[1], args[5], tiles.pair_table, args[8])
+    assert torch.equal(ph.resolve_rounds(*r_args, state=state, **r_kw),
+                       ph.resolve_rounds_ref(*r_args, state=state, **r_kw))
+
+
+# P1, the parity march: random rays in the glass box (every layout has
+# its depth images there) against ray_march_ref, in each layout with
+# insideObject 0, 1 and 2 and a random per-lane dither; and in the plain
+# layout the cases of the loop's exits: s_max 16 and 40, N not a
+# multiple of the block, every lane dead, and the dither alone.
+P1_LAYOUTS = {
+    "plain": {},
+    "refraction": dict(support_refraction=True),
+    "backface": dict(accurate_thickness=ThicknessMode.DEPTH_ONLY),
+    "refraction + backface": dict(support_refraction=True,
+                                  accurate_thickness=ThicknessMode.DEPTH_NORMALS),
+}
+P1_CASES = ("random", "s_max 16", "s_max 40", "ragged", "dead", "dither")
+
+
+@pytest.fixture(scope="module")
+def march_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    h, w = 96, 160
+    cam = fixtures.box_scene_camera(h, w, device=dev)
+    gb = fixtures.rasterize_gbuffers(scene.build_box_scene(with_glass=True, with_mirror=False),
+                                     cam, h, w, device=dev, with_backface=True)
+    g = torch.Generator().manual_seed(13)
+    n = h * w
+    d = torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    view = torch.randn(n, 3, generator=g)
+    view = view / view.norm(dim=-1, keepdim=True)
+    origin = torch.rand(n, 3, generator=g) * torch.tensor([5.0, 3.5, 5.0]) - torch.tensor(
+        [2.5, 0.0, 2.5])
+    lanes = dict(pos=origin, dir=d, view=view, alive=torch.rand(n, generator=g) < 0.9,
+                 scene_dist=torch.rand(n, generator=g) * 20.0 + 1.0)
+    return gb, cam, {k: v.reshape(h, w, -1).squeeze(-1).to(dev) for k, v in lanes.items()}
+
+
+def p1_args(march_case, layout, inside, pcase):
+    """(cfg, settings, variants, gb, cam, lanes...) of one P1 call."""
+    gb, cam, x = march_case
+    s = PTSettings(maximum_steps=int(pcase.split()[1]) if pcase.startswith("s_max") else 24,
+                   **P1_LAYOUTS[layout])
+    lanes = [x["pos"], x["dir"], torch.full_like(x["scene_dist"], float(inside)),
+             torch.zeros_like(x["scene_dist"]), x["view"], x["scene_dist"], x["alive"]]
+    if pcase == "ragged":
+        lanes = [a.reshape((-1,) + a.shape[2:])[:-77] for a in lanes]  # flat lanes
+    if pcase == "dead":
+        lanes[6] = torch.zeros_like(lanes[6])
+    if pcase in ("dither", "layout"):
+        lanes[3] = random_dither(lanes[3].numel(), lanes[3].device).reshape(lanes[3].shape)
+    return (PTConfig(), s, s.variants(), gb, cam, *lanes)
+
+
+def check_p1(args, hits: float):
+    before = LAUNCHES["ray_march"]
+    got = pt.ray_march(*args)
+    ref = pt.ray_march_ref(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ray_march"] == before + 1
+    assert ref.hit.float().mean() >= hits
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype == torch.float32:
+            assert torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+        else:
+            assert torch.equal(a, b)
+    return ref
+
+
+@pytest.mark.parametrize("pcase", P1_CASES)
+def test_ray_march_kernel_bit_exact(march_case, pcase):
+    args = p1_args(march_case, "plain", 0, pcase)
+    check_p1(args, 0.0 if pcase == "dead" else 0.2)
+
+
+@pytest.mark.parametrize("inside", [0, 1, 2])
+@pytest.mark.parametrize("layout", list(P1_LAYOUTS))
+def test_ray_march_layouts_bit_exact(march_case, layout, inside):
+    ref = check_p1(p1_args(march_case, layout, inside, "layout"), 0.05)
+    if "backface" in layout and inside == 0:
+        assert ref.is_back_hit.any()

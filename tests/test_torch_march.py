@@ -25,6 +25,16 @@ Tolerances, and why:
     within 1e-3 relative. Transcendentals (sin, cos, log2, sqrt) differ
     by ulps between XLA and torch, and a path whose roulette or window
     test sits on an edge takes another branch.
+  * The hiz frame's variants, the same gate: step dithering with the
+    headline caps against the JAX dithered frame; 2 and 3 samples a
+    pixel with per-bounce round budgets (6, 2) against the mean of the
+    JAX 1-spp frames f + s * (3 + 4 * maximum_depth), s < spp, with the
+    HSV clamp out of reach (maximum_intensity 1e30). Under the hashed
+    RNG sample s of frame f draws exactly the stream of sample 0 of
+    that frame, so the mean is the JAX batched frame up to the order of
+    its sums; the JAX package's batched samples through the hiz march
+    would compile its interpret-mode kernels anew, too slowly for this
+    file.
 """
 
 import dataclasses
@@ -231,3 +241,61 @@ def test_rasterizer_copy_matches_jax_fixtures():
         assert np.array_equal(getattr(tgb, name).numpy(), np.asarray(getattr(gb, name)))
     assert np.array_equal(tgb.material_flags.numpy(), np.asarray(gb.material_flags))
     assert np.abs(tgb.normal.numpy() - np.asarray(gb.normal)).max() < 1e-5
+
+
+@pytest.fixture(scope="module")
+def hiz_variant_frames(frame_case):
+    """JAX hiz frames for the variants (after ``frame_case``, which
+    compiles the JAX hiz march's kernels in this process): the 1-spp
+    frames f + s * 11 (s = 0, 1, 2) with round budgets (6, 2) and no
+    reachable clamp, and a dithered frame with the headline caps."""
+    sc = scene.build_box_scene()
+    cam = fixtures.box_scene_camera(FH, FW)
+    gb = fixtures.rasterize_gbuffers(sc, cam, FH, FW)
+    probes = ProbeSet(probe0=constant_probe(PROBE))
+    rounds = dataclasses.replace(PTConfig.boxscene_headline(), hiz_rounds=(6, 2))
+    unclamped = PTSettings(maximum_depth=2, maximum_steps=24, maximum_intensity=1e30)
+    samples = [
+        np.asarray(pathtrace_hiz.trace_frame_hiz(gb, cam, probes, unclamped, rounds,
+                                                 unclamped.variants(), jnp.uint32(11 * s)))
+        for s in range(3)
+    ]
+    dithered = PTSettings(maximum_depth=2, maximum_steps=24, dithering=True)
+    dither_frame = pathtrace_hiz.trace_frame_hiz(
+        gb, cam, probes, dithered, PTConfig.boxscene_headline(), dithered.variants(),
+        jnp.uint32(5))
+    return dict(samples=samples, dithered=np.asarray(dither_frame),
+                rounds=convert.pt_config(rounds), unclamped=convert.pt_settings(unclamped),
+                dithered_settings=convert.pt_settings(dithered))
+
+
+@pytest.mark.parametrize("spp", [2, 3])
+def test_hiz_samples_per_pixel_match_jax(frame_case, hiz_variant_frames, spp):
+    """The sample loop with a tuple round budget: every sample marches
+    bounce b with budget b (6, then 2), as the JAX batched samples do."""
+    c, v = frame_case, hiz_variant_frames
+    s = dataclasses.replace(v["unclamped"], samples_per_pixel=spp)
+    budgets = []
+    real = tpathtrace_hiz.ray_march_hiz
+
+    def spy(*args, **kw):
+        budgets.append(kw["n_rounds"])
+        return real(*args, **kw)
+
+    tpathtrace_hiz.ray_march_hiz = spy
+    try:
+        out = tpathtrace_hiz.trace_frame_hiz(c["gb"], c["cam"], c["probes"], s, v["rounds"],
+                                             s.variants(), 0)
+    finally:
+        tpathtrace_hiz.ray_march_hiz = real
+    assert budgets == [6, 2] * spp
+    ref = sum(v["samples"][:spp]) / spp
+    _assert_frame_close(out.numpy(), ref, c["non_sky"])
+
+
+def test_hiz_dithering_with_caps_matches_jax(frame_case, hiz_variant_frames):
+    c, v = frame_case, hiz_variant_frames
+    s = v["dithered_settings"]
+    out = tpathtrace_hiz.trace_frame_hiz(c["gb"], c["cam"], c["probes"], s, c["cfg"],
+                                         s.variants(), 5)
+    _assert_frame_close(out.numpy(), v["dithered"], c["non_sky"])

@@ -127,13 +127,14 @@ def test_settings_validate_ranges(field, value):
 @pytest.mark.parametrize("cfg_kw,settings_kw", [
     ({"hiz_home_prefix": True}, {"noise_method": tconfig.NoiseMethod.SOBOL_OWEN}),
     ({"hiz_round_cap": 0.4}, {"denoiser": tconfig.DenoiserType.SPATIAL_TEMPORAL}),
-    ({}, {"gbuffer_normals_oct": True}),
+    ({}, {"gbuffer_normals_oct": True, "noise_method": tconfig.NoiseMethod.BLUE_NOISE}),
     ({}, {"noise_method": tconfig.NoiseMethod.BLUE_NOISE}),
     ({}, {"denoiser": tconfig.DenoiserType.TEMPORAL}),
-    ({}, {"ignore_forward_objects": True}),
+    ({}, {"ignore_forward_objects": True, "denoiser": tconfig.DenoiserType.TEMPORAL}),
 ])
 def test_unported_knobs_raise(cfg_kw, settings_kw):
-    """Unported settings raise, also beside the ported resolve knobs."""
+    """Unported settings raise, also beside the ported resolve knobs and
+    beside ported variants (oct normals, forward-only objects)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfig.PTSettings(**settings_kw).variants().check_supported()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -144,24 +145,31 @@ def test_unported_knobs_raise(cfg_kw, settings_kw):
 
 @pytest.mark.parametrize("kw,raises,match", [
     ({}, None, None),
-    ({"hdr_64bit": False}, NotImplementedError, "item 3b"),
-    ({"kernel": "xla"}, NotImplementedError, "item 7"),
+    ({"hdr_64bit": False}, None, None),
+    ({"kernel": "xla"}, None, None),
     ({"kernel": "bogus"}, ValueError, "unknown kernel"),
 ])
 def test_renderer_takes_the_jax_keywords(kw, raises, match):
     """The JAX Renderer's arguments in its order and with its defaults,
-    then ``device``; the unported values raise naming their items."""
+    then ``device``; ``hdr_64bit=False`` gives the bf16 accumulator,
+    ``kernel="xla"`` the parity march, an unknown kernel raises."""
     jax_params = list(inspect.signature(JRenderer.__init__).parameters.values())
     port_params = list(inspect.signature(Renderer.__init__).parameters.values())
     assert [p.name for p in port_params] == [p.name for p in jax_params] + ["device"]
     for jp, tp in zip(jax_params[6:], port_params[6:]):
         assert tp.default == jp.default, tp.name
     s = tconfig.PTSettings(maximum_depth=1)
-    if raises is None:
+    if not kw:
         r = Renderer(s, 16, 16, tconfig.PTConfig(), None, np.radians(45.0), True, None, None,
                      "hiz", device="cpu")
         assert r.fov_y == np.radians(45.0)
         assert Renderer(s, 16, 16, device="cpu").fov_y == np.radians(60.0)
+    if raises is None:
+        r = Renderer(s, 16, 16, device="cpu", **kw)
+        low = kw.get("hdr_64bit") is False
+        assert r.offline_state.accum.dtype == (torch.bfloat16 if low else torch.float32)
+        assert r.max_sample == (64 if low else s.maximum_samples)
+        assert r.kernel == kw.get("kernel", "hiz")
     else:
         with pytest.raises(raises, match=match):
             Renderer(s, 16, 16, device="cpu", **kw)
@@ -521,9 +529,9 @@ def test_trace_frame_hiz_tuple_rounds(small_scene):
         gb, cam, probes, s, tconfig.PTConfig(), s.variants(), 33, n_rounds=r)
     assert torch.equal(run(3), run((3,)))
     assert not torch.equal(run(3), run((3, 0)))
+    blue = tconfig.PTSettings(noise_method=tconfig.NoiseMethod.BLUE_NOISE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_frame_hiz(gb, cam, probes, tconfig.PTSettings(dithering=True),
-                        tconfig.PTConfig(), s.variants(), 33)
+        trace_frame_hiz(gb, cam, probes, blue, tconfig.PTConfig(), blue.variants(), 33)
 
 
 def test_convert_state_and_unported_layers(box):

@@ -2,9 +2,10 @@
 
 The counterpart of ``unitysspathtracingurp_tpu`` (the JAX package, kept
 as the reference), module for module. Plain tensor code is PyTorch; the
-hiz march's two hot kernels are hand-written CUDA for Hopper
-(``csrc/``, built by ``kernels/build.py``), each with a plain PyTorch
-version beside its wrapper that CPU tensors run.
+marches' hot loops (the hiz march's front half and resolve rounds, the
+parity march) are hand-written CUDA kernels for Hopper (``csrc/``,
+built by ``kernels/build.py``), each with a plain PyTorch version
+beside its wrapper that CPU tensors run.
 
 Conventions are the JAX package's (see camera.py): reversed-Z raw depth
 in [0, 1] with 0.0 = sky, uv with v up, arrays (H, W[, C]) with row 0

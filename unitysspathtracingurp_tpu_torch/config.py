@@ -129,11 +129,6 @@ class PTVariants:
             raise NotImplementedError(
                 "temporal accumulation: ROADMAP Queue 1 item 10"
             )
-        if self.gbuffer_normals_oct or self.ignore_forward_objects:
-            raise NotImplementedError(
-                "oct-encoded G-buffer normals / forward-only objects: "
-                "ROADMAP Queue 1 item 3b"
-            )
         return self
 
 
@@ -190,3 +185,7 @@ class PTSettings:
 
 FRAME_INDEX_STRIDE = 33
 FRAME_INDEX_MOD = 64000
+
+# Offline accumulation cap when the HDR target is 11-bit float rather than
+# 64-bit (reference: cs:810-814).
+MAX_SAMPLES_LOW_PRECISION = 64

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from .config import PTVariants
+from .ops.envprobe import oct_decode, oct_encode
 
 MATERIAL_FLAG_SPECULAR_SETUP = 8
 SURFACE_TYPE_REFRACTION = 2  # kSurfaceTypeRefraction (transparent G-buffer flag)
@@ -89,12 +90,36 @@ def gather2d(img, iy, ix):
     return flat[idx]
 
 
-def opaque_surface(albedo, flags, g1, normal, smoothness, emission, inside_object):
-    """Opaque-path surface from already fetched layers (ref :168-210)."""
+def pack_normal_oct_quad(normal):
+    """Unit normal -> oct-encoded GBuffer2.rgb in [0, 1]: the oct uv in
+    rgb[:2], rgb[2] = 0. The JAX package's storage (``gbuffer.py:
+    131-149``): no 888 byte spreading, so it round-trips
+    ``unpack_normal_oct_quad``, not raw URP texture bytes."""
+    uv = oct_encode(normal)
+    return torch.cat([uv, torch.zeros_like(uv[..., :1])], dim=-1)
+
+
+def unpack_normal_oct_quad(rgb):
+    """Oct-encoded GBuffer2.rgb -> unit normal (UnpackNormalOctQuadEncode,
+    PathTracingUtilities.hlsl:203-205)."""
+    return oct_decode(rgb[..., :2])
+
+
+def opaque_surface(albedo, flags, g1, normal, smoothness, emission, inside_object,
+                   forward_only: bool = False):
+    """Opaque-path surface from already fetched layers (ref :168-210).
+    ``forward_only`` (the ignore-forward-objects variant): a texel with
+    smoothness 0 is a forward-only object, whose albedo and specular
+    are 0 (ref :184-186)."""
+    if forward_only:
+        is_forward = (smoothness == 0.0)[..., None]
+        albedo = torch.where(is_forward, torch.zeros_like(albedo), albedo)
     specular_setup = (flags & MATERIAL_FLAG_SPECULAR_SETUP) == MATERIAL_FLAG_SPECULAR_SETUP
     metallic = g1[..., 0:1]
     spec_from_metallic = DIELECTRIC_SPEC * (1.0 - metallic) + albedo * metallic
     specular = torch.where(specular_setup[..., None], g1, spec_from_metallic)
+    if forward_only:
+        specular = torch.where(is_forward, torch.zeros_like(specular), specular)
     return SurfaceData(
         albedo=albedo,
         specular=specular,
@@ -155,10 +180,15 @@ def hit_surface_from_gbuffer(gb: GBuffers, uv, inside_object, variants: PTVarian
     else:
         iy, ix = uv_to_pixel(uv, gb.height, gb.width)
         fetch = lambda img: gather2d(img, iy, ix)  # noqa: E731
+    normal = fetch(gb.normal)
+    if variants.gbuffer_normals_oct:
+        # _GBUFFER_NORMALS_OCT: GBuffer2.rgb holds the oct-encoded normal
+        # (ref :201-205).
+        normal = unpack_normal_oct_quad(normal)
     surf = opaque_surface(
         fetch(gb.albedo), fetch(gb.material_flags), fetch(gb.gbuffer1),
-        fetch(gb.normal), fetch(gb.smoothness), fetch(gb.emission),
-        inside_object,
+        normal, fetch(gb.smoothness), fetch(gb.emission),
+        inside_object, forward_only=variants.ignore_forward_objects,
     )
     if not (variants.support_refraction and gb.t_surface_type is not None):
         return surf

@@ -96,7 +96,15 @@ class PackedGBuffers:
 
 def pack_gbuffers(gb: GBuffers) -> PackedGBuffers:
     """Dense encode of the G-buffer layers (transparent and backface
-    normal words where the G-buffer has those layers)."""
+    normal words where the G-buffer has those layers).
+
+    ``gb.normal`` is packed as a unit normal whatever the variant, as the
+    JAX package packs it (``gbuffer_packed.py:135``): under the
+    oct-normals variant it holds the oct-encoded rgb (u, v, 0), which
+    ``oct_encode`` L1-normalises, so the packed decode reads the normal
+    as normalize((u, v, 0)), not the oct decode of (u, v). The port
+    keeps that reference behaviour (ROADMAP Queue 3, reference-side
+    mismatches)."""
     pack0 = (
         _pack_unorm8(gb.albedo[..., 0], 0)
         | _pack_unorm8(gb.albedo[..., 1], 8)
@@ -162,7 +170,8 @@ def hit_surface_from_packed(pgb: PackedGBuffers, uv, inside_object,
     normal = _unpack_oct12(w2)
     smoothness = ((w2 >> 24) & 0xFF).to(torch.float32) / 255.0
     emission = _unpack_rgbe(w3)
-    surf = opaque_surface(albedo, flags, g1, normal, smoothness, emission, inside_object)
+    surf = opaque_surface(albedo, flags, g1, normal, smoothness, emission, inside_object,
+                          forward_only=variants.ignore_forward_objects)
     if not (variants.support_refraction and pgb.t_packs is not None):
         return surf
     t_words = fetch(pgb.t_packs)

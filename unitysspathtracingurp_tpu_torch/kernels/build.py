@@ -80,6 +80,12 @@ _SIGNATURES = {
     "sspt_extract_chain": [P] * 9 + [I] * 5 + [P],
     # pointers: blocks, idx, out; ints n, k; stream.
     "sspt_rowwise_select": [P] * 3 + [I] * 2 + [P],
+    # pointers: ray_pos, ray_dir, view_dir, inside, dither, large_step,
+    # alive, scalars, layer1, opaque (or null), back (or null), out,
+    # flags; ints n, gh, gw, s_max, max_small, max_medium; floats
+    # small_step, medium_step, thickness, th_inc, step_growth, texel_x,
+    # texel_y; stream.
+    "sspt_ray_march": [P] * 13 + [I] * 6 + [F] * 7 + [P],
 }
 
 

@@ -6,11 +6,14 @@ returns the traced frame. Host control flow mirrors the C# side:
 invalidation on camera or scene-key change (cs:772-823), pause, the
 converged skip (cs:436-438), the depth-tiles cache, and save / load.
 
+``kernel`` picks the march: "auto" and "hiz" the hiz march (kernels
+K1 / K4 / K6 and R1), "xla" the parity march (kernel P1), as in the
+JAX package. ``hdr_64bit=False`` is the 11-bit-float HDR target: a
+bf16 accumulator and a 64-sample budget.
+
 The real-time modes (ROADMAP Queue 1 item 10), render-scale upscaling
-(item 13), multi-device sharding (item 14), the 11-bit HDR target
-(``hdr_64bit=False``, item 3b) and the parity march (``kernel="xla"``,
-item 7) raise NotImplementedError, so accumulation is f32 and every
-frame runs the hiz march.
+(item 13) and multi-device sharding (item 14) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,11 +24,12 @@ import numpy as np
 import torch
 
 from ..camera import Camera
-from ..config import DenoiserType, PTConfig, PTSettings
+from ..config import MAX_SAMPLES_LOW_PRECISION, DenoiserType, PTConfig, PTSettings
 from ..gbuffer import GBuffers
 from ..ops.accumulate import OfflineAccumState, add_convergence_cue, offline_accumulate
 from ..ops.envprobe import ProbeSet, constant_probe
 from ..ops.depth_tiles import variant_combos
+from ..ops.pathtrace import ray_march, trace_frame
 from ..ops.pathtrace_hiz import build_tiles_for, trace_frame_hiz
 from ..ops.rng import advance_frame_index
 
@@ -51,16 +55,11 @@ class Renderer:
     ):
         """The JAX ``Renderer``'s arguments in its order, then ``device``.
         ``fov_y`` is kept for the real-time modes (item 10). ``kernel``:
-        "auto" and "hiz" run the hiz march; "xla" (the parity march) is
-        not ported."""
+        "auto" and "hiz" run the hiz march, "xla" the parity march.
+        ``hdr_64bit=False``: the accumulator is bf16 and the offline
+        budget caps at 64 samples (cs:810-814)."""
         settings.validate()
-        if not hdr_64bit:
-            raise NotImplementedError(
-                "hdr_64bit=False (bf16 accumulation): ROADMAP Queue 1 item 3b"
-            )
-        if kernel == "xla":
-            raise NotImplementedError("kernel='xla' (the parity march): ROADMAP Queue 1 item 7")
-        if kernel not in ("auto", "hiz"):
+        if kernel not in ("auto", "hiz", "xla"):
             raise ValueError(f"unknown kernel {kernel!r} (auto|hiz|xla)")
         if settings.denoiser not in (DenoiserType.NONE, DenoiserType.OFFLINE):
             raise NotImplementedError(
@@ -73,6 +72,7 @@ class Renderer:
         self.settings = settings
         self.cfg = cfg
         self.fov_y = fov_y
+        self.kernel = "hiz" if kernel == "auto" else kernel
         self.variants = settings.variants().check_supported()
         # ThicknessMode value: 2 (DepthNormals) lets back normals feed the
         # inside-object and back-hit normal flips.
@@ -84,10 +84,13 @@ class Renderer:
         ).to(self.device)
         self.frame_index = 0
         self.paused = False
-        self.max_sample = settings.maximum_samples
+        self.max_sample = (settings.maximum_samples if hdr_64bit else
+                           min(settings.maximum_samples, MAX_SAMPLES_LOW_PRECISION))
+        self.accum_dtype = torch.float32 if hdr_64bit else torch.bfloat16
         self._tiles = None
         self._tiles_key = None  # (depth tensors held by reference, near, far)
-        self.offline_state = OfflineAccumState.create(height, width, device=self.device)
+        self.offline_state = OfflineAccumState.create(height, width, dtype=self.accum_dtype,
+                                                      device=self.device)
         self._prev_vp: Optional[np.ndarray] = None
         self._scene_key = None
 
@@ -124,6 +127,20 @@ class Renderer:
             self._tiles_key = (srcs, near, far)
         return self._tiles
 
+    def _trace(self, gb: GBuffers, cam: Camera):
+        """Pass 0 through the chosen march."""
+        if self.kernel == "xla":
+            return trace_frame(
+                gb, cam, self.probes, self.settings, self.cfg, self.variants,
+                self.frame_index, march_fn=ray_march,
+                back_depth_enabled=self.back_depth_enabled,
+            )
+        return trace_frame_hiz(
+            gb, cam, self.probes, self.settings, self.cfg, self.variants,
+            self.frame_index, back_depth_enabled=self.back_depth_enabled,
+            tiles=self._get_tiles(gb, cam),
+        )
+
     def render_frame(self, gb: GBuffers, cam: Camera, scene_key=None):
         """Render one frame; returns the displayed image (H, W, 3)."""
         if not self.settings.state:
@@ -133,11 +150,7 @@ class Renderer:
         if denoiser == DenoiserType.OFFLINE and self.sample >= self.max_sample:
             image = self.offline_state.accum
         else:
-            traced = trace_frame_hiz(
-                gb, cam, self.probes, self.settings, self.cfg, self.variants,
-                self.frame_index, back_depth_enabled=self.back_depth_enabled,
-                tiles=self._get_tiles(gb, cam),
-            )
+            traced = self._trace(gb, cam)
             self.offline_state = offline_accumulate(
                 self.offline_state, traced, self.max_sample, self.paused
             )
@@ -152,7 +165,8 @@ class Renderer:
     def save(self, path: str):
         state = {
             "frame_index": self.frame_index,
-            "offline_accum": self.offline_state.accum.cpu().numpy(),
+            # f32 holds a bf16 accumulator exactly (numpy has no bf16).
+            "offline_accum": self.offline_state.accum.float().cpu().numpy(),
             "offline_sample": np.asarray(self.offline_state.sample),
         }
         if self._prev_vp is not None:
@@ -163,7 +177,7 @@ class Renderer:
         data = np.load(path if path.endswith(".npz") else path + ".npz")
         self.frame_index = int(data["frame_index"])
         self.offline_state = OfflineAccumState(
-            accum=torch.as_tensor(data["offline_accum"]).to(self.device),
+            accum=torch.as_tensor(data["offline_accum"]).to(self.device, self.accum_dtype),
             sample=int(data["offline_sample"]),
         )
         if "prev_vp" in data:

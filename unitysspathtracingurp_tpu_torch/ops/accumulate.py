@@ -22,9 +22,12 @@ class OfflineAccumState:
     sample: int  # samples accumulated so far
 
     @classmethod
-    def create(cls, height: int, width: int, device="cuda"):
-        return cls(accum=torch.zeros((height, width, 3), dtype=torch.float32,
-                                     device=device), sample=0)
+    def create(cls, height: int, width: int, dtype=torch.float32, device="cuda"):
+        """``dtype`` is the accumulation target's precision: f32 stands
+        for the reference's 64-bit HDR target, bf16 for the 11-bit-float
+        one (whose budget caps at 64 samples, cs:810-814)."""
+        return cls(accum=torch.zeros((height, width, 3), dtype=dtype, device=device),
+                   sample=0)
 
 
 def blend_alpha(sample: int, max_sample: int, paused: bool = False) -> float:
@@ -38,10 +41,11 @@ def blend_alpha(sample: int, max_sample: int, paused: bool = False) -> float:
 
 def offline_accumulate(state: OfflineAccumState, frame, max_sample: int,
                        paused=False) -> OfflineAccumState:
-    """accum' = accum + (frame - accum) * alpha."""
+    """accum' = accum + (frame - accum) * alpha, blended in f32 and stored
+    at the buffer's precision (the blend unit against the HDR target)."""
     alpha = blend_alpha(state.sample, max_sample, bool(paused))
-    prev = state.accum
-    accum = prev + (frame - prev) * alpha
+    prev = state.accum.to(torch.float32)
+    accum = (prev + (frame - prev) * alpha).to(state.accum.dtype)
     hold = state.sample >= max_sample or bool(paused)
     return OfflineAccumState(accum=accum, sample=state.sample if hold else state.sample + 1)
 

@@ -56,7 +56,9 @@ from .fused_schedule import (
 from .pallas_gather import (
     broadcast_table_select, extract_chain, pack_by_slot, row_gather, rowwise_select,
 )
-from .pathtrace import REAL_EPS, MarchResult, compact_capacity, compact_indices, trace_frame
+from .pathtrace import (
+    REAL_EPS, MarchResult, compact_capacity, compact_indices, march_large_step, trace_frame,
+)
 
 # Rows of the (11, N) resolve-state table both R1 versions return.
 RESOLVE_FIELDS = (
@@ -522,9 +524,7 @@ def ray_march_hiz(cfg, settings, variants, gb, cam, ray_pos, ray_dir, inside,
         n_rounds = cfg.hiz_rounds if cfg.hiz_rounds is not None else default_rounds(gh, gw)
     n_rounds = int(n_rounds)
     s_max = settings.maximum_steps
-    large_step = (
-        settings.step_size + (20.0 - settings.step_size) * scene_distance * 0.001
-    )
+    large_step = march_large_step(settings, scene_distance)
     is_back_ray = (
         ray_dir[..., 0] * view_dir[..., 0] + ray_dir[..., 1] * view_dir[..., 1]
         + ray_dir[..., 2] * view_dir[..., 2]
@@ -721,8 +721,12 @@ def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
     injected). ``back_depth_enabled`` is the ThicknessMode value (2 =
     DepthNormals: back normals feed the inside-object normal flip).
     ``n_rounds`` (or ``cfg.hiz_rounds``) may be a tuple of per-bounce
-    budgets, indexed by march call order (last extends). ``_debug_out``:
-    every bounce's march is the diagnostic march (``ray_march_hiz``)."""
+    budgets (last extends), indexed by the bounce: ``trace_frame`` marches
+    ``maximum_depth`` times a sample, so call c is bounce c mod
+    ``maximum_depth``. The JAX package indexes by call order, which its
+    batched samples share (``pathtrace_hiz.py:1019-1031``); the same
+    budget a bounce either way. ``_debug_out``: every bounce's march is
+    the diagnostic march (``ray_march_hiz``)."""
     if tiles is None:
         tiles = build_tiles_for(gb, cam, variants)
     rounds = n_rounds if n_rounds is not None else cfg.hiz_rounds
@@ -731,7 +735,7 @@ def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
         calls = {"n": 0}
 
         def march_fn(*args, **kw):
-            r = sched[min(calls["n"], len(sched) - 1)]
+            r = sched[min(calls["n"] % settings.maximum_depth, len(sched) - 1)]
             calls["n"] += 1
             return ray_march_hiz(*args, tiles=tiles, n_rounds=r, _debug_out=_debug_out, **kw)
     else:

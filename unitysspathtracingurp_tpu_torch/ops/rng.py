@@ -68,6 +68,19 @@ def draw(rng: RNG):
     return value, dataclasses.replace(rng, seed=seed)
 
 
+def draws_per_sample(maximum_depth: int) -> int:
+    """Draws one path sample takes: 3 for bounce 0 (the BRDF's draw2 and
+    roulette), 4 a bounce after it (draw2, roulette, Russian roulette)."""
+    return 3 + 4 * maximum_depth
+
+
+def sample_rng(rng: RNG, s: int, maximum_depth: int) -> RNG:
+    """The stream of path sample ``s``: the counter offset by ``s`` samples'
+    draws, so samples drawn one after another reproduce the JAX package's
+    samples drawn side by side (``pathtrace.py:942-949``)."""
+    return dataclasses.replace(rng, seed=rng.seed + s * draws_per_sample(maximum_depth))
+
+
 def draw2(rng: RNG):
     a, rng = draw(rng)
     b, rng = draw(rng)
