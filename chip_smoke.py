@@ -51,8 +51,11 @@ Phases (any failure exits non-zero and prints no result line):
      R1-dual on every bounce of the dual frame (their own inputs, with
      bound, links a lane and warp efficiency), the home prefix x round
      budget A/B; P1 on its own inputs in every bounce of the parity
-     headline frame (ms, bound, steps a lane, warp efficiency) beside K1
-     + R1 on the hiz frame's bounce 0; the 256^2 golden through P1 (512
+     headline and parity dual frames (ms, bound, steps a lane, warp
+     efficiency, the warp-steps one thread a lane would issue and the
+     lane-steps over 32, and the issue-limited time of each at the
+     loop's SASS) beside K1 + R1 on the hiz frame's bounce 0; the 256^2
+     golden through P1 (512
      frames, 1 bounce, pooled relative RMSE < 0.035 against
      fixtures/box256_golden_cpu.npz); the hiz-vs-parity deviation of the
      1080p headline and dual frames (128 frames each, common seeds);
@@ -82,6 +85,9 @@ SPIN_MIN_S = 0.02  # the least device spin ahead of a timed run
 # Clock cycles a second of torch.cuda._sleep's spin: the H100 SXM's
 # highest SM clock (1.98 GHz), so the spin lasts at least as long as asked.
 SPIN_CYCLES_PER_S = 1.98e9
+# Warp-instructions the card can issue a second: 132 SMs x 4 schedulers
+# at that clock.
+ISSUE_PER_S = 132 * 4 * SPIN_CYCLES_PER_S
 KERNELS = {
     "schedule_pack": dict(
         source="unitysspathtracingurp_tpu_torch/csrc/schedule_pack.cu",
@@ -812,15 +818,20 @@ def r1_reference(args, kw, dual: bool = False):
                                 hits, table, dual, state is not None)
 
 
-def warp_efficiency(links) -> float:
-    """Share of issued link slots that do work: sum of lane links over 32
-    x the sum of each warp's most (lanes in warps of 32 consecutive, as
-    R1 maps them)."""
+def warp_steps(steps) -> float:
+    """The loop passes that warps of 32 consecutive lanes issue, one
+    thread a lane (as R1 maps them): each warp runs
+    as many as its longest lane."""
     import torch
 
-    pad = (-links.numel()) % 32
-    per_warp = torch.cat([links, links.new_zeros(pad)]).view(-1, 32)
-    return float(per_warp.sum()) / max(32.0 * float(per_warp.amax(1).sum()), 1.0)
+    pad = (-steps.numel()) % 32
+    return float(torch.cat([steps, steps.new_zeros(pad)]).view(-1, 32).amax(1).sum())
+
+
+def warp_efficiency(links) -> float:
+    """Share of issued link slots that do work, one thread a lane: sum of
+    lane links over 32 x ``warp_steps``."""
+    return float(links.sum()) / max(32.0 * warp_steps(links), 1.0)
 
 
 def r1_frame_report(dev, card, path: str):
@@ -1170,19 +1181,17 @@ def check_dither_kernels(dev):
             gate(equal, f"{name} bit-exact with a non-zero dither")
 
 
-def parity_report(dev, card):
-    """Phase 6: P1 on its own inputs in every bounce of the 1080p parity
-    headline frame (each bit for bit against its plain version: a gate),
-    beside K1 + R1 on the hiz headline frame's bounce-0 inputs."""
+def parity_calls(dev, path: str):
+    """The arguments of every P1 call in one 1080p frame of the parity
+    path ``path`` ("parity" or "parity_dual"; one a bounce, in order), on
+    the kernel, and the frame's settings."""
     import torch
 
-    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
     from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
-    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
 
-    s, cfg, bde, _ = path_config("parity")
-    gb, cam = path_scene("parity", H_FULL, W_FULL, dev)
+    s, cfg, bde, _ = path_config(path)
+    gb, cam = path_scene(path, H_FULL, W_FULL, dev)
     probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
     calls = []
 
@@ -1193,31 +1202,80 @@ def parity_report(dev, card):
     pt.trace_frame(gb, cam, probes, s, cfg, s.variants(), 99, march_fn=spy,
                    back_depth_enabled=bde)
     torch.cuda.synchronize()
-    tiles = ph.build_tiles_for(gb, cam, s.variants())
-    p1_ms = []
-    for b, a in enumerate(calls):
-        got = pt.ray_march(*a)
-        ref, steps, b_ = p1_reference(a)
-        torch.cuda.synchronize()
-        equal = all(bits_equal(g, r) for g, r in zip(got, ref))
-        p1_ms.append(cuda_ms(lambda: pt.ray_march(*a), 20))
-        n, alive = steps.numel(), float(a[-1].sum())
-        print(f"phase 6 P1 on the parity headline frame's bounce {b} ({n} lanes, {alive:.0f} "
-              f"alive): equal to the plain version {equal}, {p1_ms[-1]:.4f} ms, bound "
-              f"{b_['bound_ms']:.4f} ms (share {b_['bound_ms'] / p1_ms[-1]:.3f}), "
-              f"{float(steps.sum()) / n:.3f} steps a lane, {float(steps.sum()) / max(alive, 1):.3f}"
-              f" an alive lane, warp efficiency {warp_efficiency(steps):.4f}, hits "
-              f"{ref.hit.float().mean().item():.4f} [{card}]")
-        gate(equal, f"P1 bit-exact on the parity frame's bounce {b}")
-        print(f"phase 6 hiz march (4 rounds) vs P1 on the parity headline frame's bounce {b}: "
-              f"{march_agreement(ref, ph.ray_march_hiz(*a, tiles=tiles), a[-1], H_FULL, W_FULL)}")
+    return calls, s
+
+
+def issue_ms(warp_passes: float, sass: int) -> float:
+    """The least time ``warp_passes`` passes of ``sass`` SASS instructions
+    each take when the card issues one warp-instruction a clock on each
+    of its 528 schedulers."""
+    return warp_passes * sass / ISSUE_PER_S * 1e3
+
+
+def p1_loop_sass() -> dict:
+    """{kernel: SASS instructions of its longest loop} of P1's
+    instances in the built library (empty without cuobjdump)."""
+    from unitysspathtracingurp_tpu_torch.kernels.build import library_sass_loops
+
+    return {k: max(v["loops"]) for k, v in library_sass_loops().items()
+            if k.startswith("ray_march_kernel") and v["loops"]}
+
+
+def parity_report(dev, card):
+    """Phase 6: P1 on its own inputs in every bounce of the 1080p parity
+    headline and parity dual frames (each bit for bit against its plain
+    version: a gate), with the warp-steps one thread a lane would issue,
+    the lane-steps over 32 (what perfect refill would issue) and the
+    issue-limited time of each at the loop's SASS; beside K1 + R1 on the
+    hiz headline frame's bounce-0 inputs."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
+
+    loop_sass = p1_loop_sass()
+    print(f"phase 6 P1 SASS instructions of the loop by instance: {loop_sass}")
+    p1_ms = {}
+    for path in ("parity", "parity_dual"):
+        calls, s = parity_calls(dev, path)
+        _, opaque, back = pt.march_depth_images(calls[0][3], s.variants())
+        sass = loop_sass.get(f"ray_march_kernel<{int(opaque is not None)},{int(back is not None)}>")
+        tiles = ph.build_tiles_for(calls[0][3], calls[0][4], s.variants())
+        name = PATH_NAMES[path].split(" (")[0]
+        for b, a in enumerate(calls):
+            got = pt.ray_march(*a)
+            ref, steps, b_ = p1_reference(a)
+            torch.cuda.synchronize()
+            equal = all(bits_equal(g, r) for g, r in zip(got, ref))
+            ms = cuda_ms(lambda: pt.ray_march(*a), 20)
+            p1_ms.setdefault(path, []).append(ms)
+            n, alive, lane_steps = steps.numel(), float(a[-1].sum()), float(steps.sum())
+            ws = warp_steps(steps)
+            issue = (f"issue-limited at {sass} SASS a pass {issue_ms(ws, sass):.4f} ms one "
+                     f"thread a lane, {issue_ms(lane_steps / 32, sass):.4f} ms with perfect "
+                     f"refill" if sass else "issue-limited time not measured (no cuobjdump)")
+            print(f"phase 6 P1 on the {name} frame's bounce {b} ({n} lanes, {alive:.0f} "
+                  f"alive): equal to the plain version {equal}, {ms:.4f} ms, bound "
+                  f"{b_['bound_ms']:.4f} ms (share {b_['bound_ms'] / ms:.3f}), "
+                  f"{lane_steps / n:.3f} steps a lane, {lane_steps / max(alive, 1):.3f} an alive "
+                  f"lane, warp efficiency {warp_efficiency(steps):.4f}; lane-steps "
+                  f"{lane_steps:.0f}, warp-steps one thread a lane {ws:.0f}, lane-steps / 32 "
+                  f"{lane_steps / 32:.0f}; {issue}; hits {ref.hit.float().mean().item():.4f} "
+                  f"[{card}]")
+            gate(equal, f"P1 bit-exact on the {name} frame's bounce {b}")
+            if path == "parity":
+                print(f"phase 6 hiz march (4 rounds) vs P1 on the parity headline frame's bounce "
+                      f"{b}: {march_agreement(ref, ph.ray_march_hiz(*a, tiles=tiles), a[-1], H_FULL, W_FULL)}")
     k1_a, k1_kw = frame_calls(dev, "headline", "schedule_pack")[0][0]
     r1_a, r1_kw = frame_calls(dev, "headline", "resolve_rounds")[0][0]
     k1_ms = cuda_ms(lambda: fs.schedule_pack(*k1_a, **k1_kw), 20)
     r1_ms = cuda_ms(lambda: ph.resolve_rounds(*r1_a, **r1_kw), 20)
-    print(f"phase 6 bounce 0: P1 {p1_ms[0]:.4f} ms on the parity headline frame; K1 "
+    head, dual = p1_ms["parity"], p1_ms["parity_dual"]
+    print(f"phase 6 bounce 0: P1 {head[0]:.4f} ms on the parity headline frame; K1 "
           f"{k1_ms:.4f} + R1 {r1_ms:.4f} = {k1_ms + r1_ms:.4f} ms on the hiz headline frame; "
-          f"P1 over the frame's {len(p1_ms)} bounces {sum(p1_ms):.4f} ms [{card}]")
+          f"P1 over the frame's {len(head)} bounces {sum(head):.4f} ms, over the parity dual "
+          f"frame's {len(dual)} {sum(dual):.4f} ms [{card}]")
 
 
 def golden_gate(dev, card, frames=512):

@@ -255,45 +255,6 @@ def file_name(copy: str) -> str:
     return re.sub(r"[^\w-]", "_", copy)
 
 
-def sass_loops(so: Path) -> dict:
-    """{kernel: [instructions in each loop, innermost first]} from
-    ``cuobjdump -sass``: a loop is a backward branch and the code it
-    jumps back over. Empty where cuobjdump is missing."""
-    nvcc = build.nvcc_path()
-    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
-    if tool is None or not tool.exists():
-        return {}
-    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
-    loops, name, addrs, labels, branches = {}, None, [], {}, []
-
-    def close():
-        if name is not None:
-            spans = []
-            for at, target in branches:
-                dest = labels.get(target, target) if isinstance(target, str) else target
-                if isinstance(dest, int) and dest <= at:
-                    spans.append(sum(1 for a in addrs if dest <= a <= at))
-            loops[build._kernel_name(name)] = dict(instructions=len(addrs), loops=sorted(spans))
-
-    pending = []
-    for line in out.splitlines():
-        if m := re.search(r"Function : (\S+)", line):
-            close()
-            name, addrs, labels, branches, pending = m.group(1), [], {}, [], []
-        elif m := re.match(r"\s*(\.L_x_\d+):", line):
-            pending.append(m.group(1))
-        elif m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line):
-            at = int(m.group(1), 16)
-            addrs.append(at)
-            for label in pending:
-                labels[label] = at
-            pending = []
-            if b := re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", m.group(2)):
-                branches.append((at, b.group(1) if b.group(1) else int(b.group(2), 16)))
-    close()
-    return loops
-
-
 def build_copies(parent: Path | None) -> dict:
     """{copy: (ctypes library, ptxas rows, SASS loops)}, all nvcc
     processes at once. A copy that fails to build is reported and left out."""
@@ -328,7 +289,7 @@ def build_copies(parent: Path | None) -> dict:
             fn = getattr(lib, entry)
             fn.argtypes = build._SIGNATURES[entry]
             fn.restype = ctypes.c_int
-        libs[name] = (lib, build.parse_ptxas(out), sass_loops(so))
+        libs[name] = (lib, build.parse_ptxas(out), build.sass_loops(so))
     return libs
 
 

@@ -631,3 +631,98 @@ def test_ray_march_layouts_bit_exact(march_case, layout, inside):
     ref = check_p1(p1_args(march_case, layout, inside, "layout"), 0.05)
     if "backface" in layout and inside == 0:
         assert ref.is_back_hit.any()
+
+
+# P1's persistent warps take lanes from a per-call work counter and refill
+# the slots of finished lanes: the cases of that control flow, each bit for
+# bit against ray_march_ref. Lanes are the glass box's random rays, flat and
+# indexed (an index may repeat), in the plain layout.
+def p1_lanes(march_case, idx, alive=None, s_max=24):
+    gb, cam, x = march_case
+    s = PTSettings(maximum_steps=s_max)
+    flat = {k: v.reshape((-1,) + v.shape[2:])[idx] for k, v in x.items()}
+    return (PTConfig(), s, s.variants(), gb, cam, flat["pos"], flat["dir"],
+            torch.zeros_like(flat["scene_dist"]), random_dither(idx.numel(), idx.device),
+            flat["view"], flat["scene_dist"], flat["alive"] if alive is None else alive)
+
+
+def p1_grid_threads(refr=False, back=False) -> int:
+    from unitysspathtracingurp_tpu_torch.kernels.build import load_library
+
+    return load_library().sspt_ray_march_grid(int(refr), int(back))
+
+
+def long_lanes(march_case, s_max=40, least=30):
+    """Indices of the fixture's lanes that march at least ``least`` of
+    ``s_max`` steps when alive."""
+    _, _, x = march_case
+    n = x["alive"].numel()
+    idx = torch.arange(n, device=x["alive"].device)
+    steps = []
+    pt.ray_march_ref(*p1_lanes(march_case, idx, torch.ones_like(x["alive"].reshape(n)), s_max),
+                     steps_out=steps)
+    return idx[steps[0] >= least]
+
+
+@pytest.mark.parametrize("n", [1, 31])
+def test_ray_march_few_lanes_bit_exact(march_case, n):
+    check_p1(p1_lanes(march_case, torch.arange(n, device=march_case[2]["pos"].device)), 0.0)
+
+
+def test_ray_march_no_lanes(march_case):
+    args = p1_lanes(march_case, torch.arange(0, device=march_case[2]["pos"].device))
+    got = pt.ray_march(*args)
+    torch.cuda.synchronize()
+    assert got.hit.shape == (0,) and got.position.shape == (0, 3) and got.uv.shape == (0, 2)
+
+
+@pytest.mark.parametrize("times", ["one more", "3.5 x"])
+def test_ray_march_past_the_persistent_grid_bit_exact(march_case, times):
+    grid = p1_grid_threads()
+    assert grid > 0 and grid % 128 == 0
+    n = grid + 1 if times == "one more" else 3 * grid + grid // 2 + 7
+    dev = march_case[2]["pos"].device
+    check_p1(p1_lanes(march_case, torch.arange(n, device=dev) % march_case[2]["pos"][..., 0].numel()),
+             0.2)
+
+
+def test_ray_march_lone_long_lane_bit_exact(march_case):
+    """One alive lane of 40 steps in a warp of dead lanes; then long and
+    dead lanes alternating."""
+    long = long_lanes(march_case)
+    assert long.numel() >= 64
+    idx = long[:1].repeat(32)
+    alive = torch.zeros(32, dtype=torch.bool, device=idx.device)
+    alive[17] = True
+    check_p1(p1_lanes(march_case, idx, alive, s_max=40), 0.0)
+    idx = long.repeat_interleave(2)
+    alive = (torch.arange(idx.numel(), device=idx.device) % 2) == 0
+    check_p1(p1_lanes(march_case, idx, alive, s_max=40), 0.0)
+
+
+def test_ray_march_back_to_back_calls_reset_the_counter(march_case):
+    dev = march_case[2]["pos"].device
+    n = march_case[2]["pos"][..., 0].numel()
+    a = p1_lanes(march_case, torch.arange(n, device=dev))
+    b = p1_lanes(march_case, torch.arange(n // 3, device=dev).flip(0))
+    for args in (a, a, b, a):
+        check_p1(args, 0.2)
+
+
+def test_ray_march_two_streams_bit_exact(march_case):
+    dev = march_case[2]["pos"].device
+    n = march_case[2]["pos"][..., 0].numel()
+    calls = [p1_lanes(march_case, torch.arange(n, device=dev)),
+             p1_lanes(march_case, torch.arange(n - 1, -1, -1, device=dev)[: n // 2], s_max=40)]
+    refs = [pt.ray_march_ref(*c) for c in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for s, c in zip(streams, calls):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            got.append(pt.ray_march(*c))
+    torch.cuda.synchronize()
+    for g, r in zip(got, refs):
+        for a, b in zip(g, r):
+            assert torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)) \
+                if a.dtype == torch.float32 else torch.equal(a, b)

@@ -17,26 +17,43 @@
 // position where the signed depth difference changed sign, and the
 // growth of step and thickness while the lane does not search.
 //
-// The design. One thread a lane over flat N: the pixel grid or the
-// compacted (cap_n / 128, 128) domain. The step loop leaves a lane as
-// soon as it hits or leaves the screen (the HLSL's own break): an
-// inactive lane's state never changes in the masked loop, so the exit
-// gives the same bits. Each lane's layout choice is fixed by its
-// insideObject for the whole march, so the loop reads the one or two
-// depth images it needs through pointers chosen before it (__ldg: the
-// images are read-only and stay in L2 at 1080p, 8.3 MB each). Settings
-// go in a struct passed by value; the 18 camera scalars (view_proj and
-// the linear-eye-depth coefficients) are read from the device array
-// that K1 and R1 read (schedule_scalars) into shared memory once a
-// block, as R1 does: passing them by value would need a device-to-host
-// copy of the camera every march, and a __constant__ copy would share
-// K1's one-stream hazard. Outputs are structure-of-arrays: (6, N) f32
-// rows position x, y, z, distance, u, v and (2, N) bytes hit, back hit,
-// written once per lane after the loop.
+// What bounds it. The bytes are few (a lane's ray, one or two depth
+// reads a step from images that stay in L2, 26 B out), so the work is
+// the steps: about 200 SASS instructions each, five of them IEEE divides
+// or reciprocals. One thread a lane ran each warp for as many steps as
+// its longest lane, and on the compacted bounces of a frame 40-70% of
+// the issued lane-steps did nothing (scripts/march_ablation.py has the
+// split).
+//
+// The design: persistent warps that refill finished lanes. The grid is
+// as many blocks as the card holds at once (SMs x
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once), and each
+// warp keeps 32 lane slots. A lane leaves its slot at a hit (the HLSL's
+// own break), at the screen's edge or after s_max steps, and writes its
+// outputs then: an inactive lane's state never changes in the masked
+// loop, so leaving gives the same bits. Each pass of a warp's loop
+// counts its idle slots with one vote; when REFILL_MIN or more are idle,
+// lane 0 takes that many consecutive lane indices with one atomicAdd on
+// the work counter and the idle slots start them in lane order, so the
+// input loads stay mostly coalesced. A dead lane writes its defaults at
+// once and takes no step. Then every busy slot runs one step. The loop
+// is warp-uniform: every lane reaches each vote, and a finished slot
+// loops idle until the counter is spent and no slot of its warp is busy.
+// The work counter is one int32 a call, allocated by the wrapper and
+// zeroed here on the call's stream, so calls on two streams do not share
+// it. Each lane's layout choice is fixed by its insideObject for the
+// whole march, so its one or two depth images are chosen when it starts
+// and read through __ldg. Settings go in a struct passed by value; the
+// 18 camera scalars (view_proj and the linear-eye-depth coefficients)
+// are read from the device array that K1 and R1 read (schedule_scalars)
+// into registers: passing them by value would need a device-to-host copy
+// of the camera every march, and a __constant__ copy would share K1's
+// one-stream hazard. Outputs are structure-of-arrays: (6, N) f32 rows
+// position x, y, z, distance, u, v and (2, N) bytes hit, back hit.
 //
 // Numerics: --fmad=false and IEEE divides and square roots, and every
-// expression in the order of the plain version, so each output bit
-// equals ray_march_ref's.
+// expression in the order of the plain version. Only which thread runs
+// which lane changes, so each output bit equals ray_march_ref's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +61,8 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int REFILL_MIN = 8;  // idle slots of a warp's 32 that start a refill
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float REAL_EPS = 1.1920929e-07f;
 
 struct Args {
@@ -60,6 +79,7 @@ struct Args {
   const float* back;        // null without back depth
   float* out;               // (6, N)
   uint8_t* flags;           // (2, N)
+  int* work;                // the lanes taken so far, zeroed per call
   int n, gh, gw, s_max, max_small, max_medium;
   float small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y;
 };
@@ -87,65 +107,110 @@ __device__ __forceinline__ float fast_sign(float x) { return x >= 0.0f ? 1.0f : 
 
 template <bool REFR, bool BACK>
 __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
-  __shared__ float s_m[18];
-  if (threadIdx.x < 18) s_m[threadIdx.x] = a.scalars[threadIdx.x];
-  __syncthreads();
-  const int lane = blockIdx.x * THREADS + threadIdx.x;
-  if (lane >= a.n) return;
-  const float* m = s_m;
+  float m[18];
+#pragma unroll
+  for (int k = 0; k < 18; ++k) m[k] = __ldg(a.scalars + k);
   const float zz = m[16], zw = m[17];
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  const size_t nn = static_cast<size_t>(a.n);
+  auto finish = [&](int j, float hx, float hy, float hz, float hdist, float hu, float hv,
+                    bool hit, bool back_hit) {
+    a.out[j] = hx;
+    a.out[nn + j] = hy;
+    a.out[2 * nn + j] = hz;
+    a.out[3 * nn + j] = hdist;
+    a.out[4 * nn + j] = hu;
+    a.out[5 * nn + j] = hv;
+    a.flags[j] = hit;
+    a.flags[nn + j] = back_hit;
+  };
 
-  bool hit = false, back_hit = false;
-  float hx = 0.0f, hy = 0.0f, hz = 0.0f, hdist = REAL_EPS, hu = 0.0f, hv = 0.0f;
-  if (a.alive[lane]) {
-    const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
-                pz = a.ray_pos[3 * lane + 2];
-    const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
-                dz = a.ray_dir[3 * lane + 2];
-    const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
-                       + dz * a.view_dir[3 * lane + 2] <= 0.0f;
-    const float inside = a.inside[lane];
-    const float dither = a.dither[lane];
-    const float large_step = a.large_step[lane];
-    // The layer each step tests and its back layer (hlsl:79-98).
-    const float* test_img = a.layer1;
-    const float* back_img = a.back;
-    if (REFR && BACK) {
-      test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
-      back_img = inside == 1.0f ? a.opaque : a.back;
-    } else if (REFR) {
-      test_img = inside != 0.0f ? a.opaque : a.layer1;
+  // The slot's lane (-1: idle) and its march state.
+  int lane = -1, i = 0;
+  bool more = true;  // the work counter is not spent (the same in every lane of the warp)
+  bool front = false, in2 = false, start_bin = false;
+  float px = 0.0f, py = 0.0f, pz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float dither = 0.0f, large_step = 0.0f, step = 0.0f, th = 0.0f, last_diff = 0.0f;
+  float rx = 0.0f, ry = 0.0f, rz = 0.0f;  // the march position
+  float lx = 0.0f, ly = 0.0f, lz = 0.0f;  // the last tested position
+  float lu = 0.0f, lv = 0.0f;
+  const float* test_img = a.layer1;
+  const float* back_img = a.back;
+  for (;;) {
+    const unsigned idle = __ballot_sync(FULL, lane < 0);
+    if (idle == FULL && !more) break;
+    const int n_idle = __popc(idle);
+    if (more && n_idle >= REFILL_MIN) {
+      int base = 0;
+      if ((threadIdx.x & 31) == 0) base = atomicAdd(a.work, n_idle);
+      base = __shfl_sync(FULL, base, 0);
+      more = base + n_idle < a.n;
+      const int next = base + __popc(idle & below);
+      if (lane < 0 && next < a.n) {
+        if (a.alive[next] && a.s_max > 0) {
+          lane = next;
+          px = a.ray_pos[3 * lane];
+          py = a.ray_pos[3 * lane + 1];
+          pz = a.ray_pos[3 * lane + 2];
+          dx = a.ray_dir[3 * lane];
+          dy = a.ray_dir[3 * lane + 1];
+          dz = a.ray_dir[3 * lane + 2];
+          front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
+                  + dz * a.view_dir[3 * lane + 2] <= 0.0f;
+          const float inside = a.inside[lane];
+          in2 = inside == 2.0f;
+          dither = a.dither[lane];
+          large_step = a.large_step[lane];
+          // The layer each step tests and its back layer (hlsl:79-98).
+          test_img = a.layer1;
+          back_img = a.back;
+          if (REFR && BACK) {
+            test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
+            back_img = inside == 1.0f ? a.opaque : a.back;
+          } else if (REFR) {
+            test_img = inside != 0.0f ? a.opaque : a.layer1;
+          }
+          step = a.small_step;
+          th = a.thickness;
+          start_bin = false;
+          rx = lx = px;
+          ry = ly = py;
+          rz = lz = pz;
+          float lraw;
+          project(m, px, py, pz, lu, lv, lraw);
+          last_diff = 0.0f;
+          i = 0;
+        } else {
+          finish(next, 0.0f, 0.0f, 0.0f, REAL_EPS, 0.0f, 0.0f, false, false);
+        }
+      }
     }
+    if (lane < 0) continue;
 
-    float step = a.small_step, th = a.thickness;
-    bool start_bin = false;
-    float rx = px, ry = py, rz = pz;  // the march position
-    float lx = px, ly = py, lz = pz;  // the last tested position
-    float lu, lv, lraw;
-    project(m, px, py, pz, lu, lv, lraw);
-    float last_diff = 0.0f;
-    for (int i = 1; i <= a.s_max; ++i) {
-      if (i == a.max_small + 1) {
-        if (!start_bin) step = a.medium_step;
-        th = a.thickness;
-      }
-      if (i == a.max_medium + 1) {
-        if (!start_bin) step = large_step;
-        th = a.thickness;
-      }
-      const float adv = step + step * dither;
-      rx = rx + adv * dx;
-      ry = ry + adv * dy;
-      rz = rz + adv * dz;
-      float u, v, raw;
-      project(m, rx, ry, rz, u, v, raw);
-      if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
-        continue;  // sub-texel move: the step is consumed untested
-      }
-      if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
-
-      const size_t texel = static_cast<size_t>(pixel_index(v, a.gh)) * a.gw
-                           + pixel_index(u, a.gw);
+    // Step i of the lane.
+    ++i;
+    if (i == a.max_small + 1) {
+      if (!start_bin) step = a.medium_step;
+      th = a.thickness;
+    }
+    if (i == a.max_medium + 1) {
+      if (!start_bin) step = large_step;
+      th = a.thickness;
+    }
+    const float adv = step + step * dither;
+    rx = rx + adv * dx;
+    ry = ry + adv * dy;
+    rz = rz + adv * dz;
+    float u, v, raw;
+    project(m, rx, ry, rz, u, v, raw);
+    if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
+      // A sub-texel move: the step is consumed untested.
+    } else if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) {
+      finish(lane, 0.0f, 0.0f, 0.0f, REAL_EPS, 0.0f, 0.0f, false, false);  // left the screen
+      lane = -1;
+      continue;
+    } else {
+      const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
       const float device_depth = __ldg(test_img + texel);
       const float scene_depth = 1.0f / (device_depth * zz + zw);
       const float hit_depth = 1.0f / (raw * zz + zw);
@@ -161,7 +226,7 @@ __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
       const bool back_search = !front && hit_depth > scene_back && back_valid;
       const float sd = back_search ? back_diff : depth_diff;
       const float sgn = fast_sign(sd);
-      const bool cannot_bin = inside != 2.0f && !start_bin
+      const bool cannot_bin = !in2 && !start_bin
                               && (front ? hit_depth > scene_back : hit_depth < scene_depth);
       start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
       if (start_bin) {
@@ -169,8 +234,7 @@ __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
         step = fast_sign(halved) == sgn ? halved : -halved;
       }
       const bool is_sky = device_depth == 0.0f;
-      const bool hit_plain = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
-      bool hit_ok = hit_plain;
+      bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
       if (BACK && back_valid) {
         hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
                  && !is_sky;
@@ -179,22 +243,17 @@ __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
         float denom = last_diff - sd;
         if (fabsf(denom) < 1e-20f) denom = 1e-20f;
         const float t = last_diff / denom;
+        float hx = rx, hy = ry, hz = rz;
         if (sgn != fast_sign(last_diff)) {
           hx = lx + (rx - lx) * t;
           hy = ly + (ry - ly) * t;
           hz = lz + (rz - lz) * t;
-        } else {
-          hx = rx;
-          hy = ry;
-          hz = rz;
         }
         const float ex = rx - px, ey = ry - py, ez = rz - pz;
-        hdist = sqrtf(ex * ex + ey * ey + ez * ez);
-        hu = u;
-        hv = v;
-        back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
-        hit = true;
-        break;
+        finish(lane, hx, hy, hz, sqrtf(ex * ex + ey * ey + ez * ez), u, v, true,
+               BACK && back_valid && hit_depth > scene_back && sgn > 0.0f);
+        lane = -1;
+        continue;
       }
       if (!start_bin) {
         step = step + step * a.step_growth;
@@ -207,22 +266,36 @@ __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
       lu = u;
       lv = v;
     }
+    if (i >= a.s_max) {  // the last step found nothing
+      finish(lane, 0.0f, 0.0f, 0.0f, REAL_EPS, 0.0f, 0.0f, false, false);
+      lane = -1;
+    }
   }
-  const size_t nn = static_cast<size_t>(a.n);
-  a.out[lane] = hx;
-  a.out[nn + lane] = hy;
-  a.out[2 * nn + lane] = hz;
-  a.out[3 * nn + lane] = hdist;
-  a.out[4 * nn + lane] = hu;
-  a.out[5 * nn + lane] = hv;
-  a.flags[lane] = hit;
-  a.flags[nn + lane] = back_hit;
+}
+
+// The blocks the card holds at once, queried on the first call. The
+// grid's size does not change what a lane computes: the warps take lanes
+// until the counter is spent.
+template <bool REFR, bool BACK>
+int resident_blocks() {
+  static const int blocks = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ray_march_kernel<REFR, BACK>,
+                                                  THREADS, 0);
+    return sms * per_sm > 0 ? sms * per_sm : 1;
+  }();
+  return blocks;
 }
 
 template <bool REFR, bool BACK>
-void launch(const Args& a, cudaStream_t stream) {
-  const int blocks = (a.n + THREADS - 1) / THREADS;
-  ray_march_kernel<REFR, BACK><<<blocks, THREADS, 0, stream>>>(a);
+int launch(const Args& a, cudaStream_t stream) {
+  const int needed = (a.n + THREADS - 1) / THREADS, resident = resident_blocks<REFR, BACK>();
+  const cudaError_t e = cudaMemsetAsync(a.work, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ray_march_kernel<REFR, BACK><<<needed < resident ? needed : resident, THREADS, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -231,9 +304,9 @@ extern "C" int sspt_ray_march(
     const void* ray_pos, const void* ray_dir, const void* view_dir, const void* inside,
     const void* dither, const void* large_step, const void* alive, const void* scalars,
     const void* layer1, const void* opaque, const void* back, void* out, void* flags,
-    int n, int gh, int gw, int s_max, int max_small, int max_medium, float small_step,
-    float medium_step, float thickness, float th_inc, float step_growth, float texel_x,
-    float texel_y, void* stream) {
+    void* work, int n, int gh, int gw, int s_max, int max_small, int max_medium,
+    float small_step, float medium_step, float thickness, float th_inc, float step_growth,
+    float texel_x, float texel_y, void* stream) {
   const Args a = {
       static_cast<const float*>(ray_pos), static_cast<const float*>(ray_dir),
       static_cast<const float*>(view_dir), static_cast<const float*>(inside),
@@ -241,20 +314,21 @@ extern "C" int sspt_ray_march(
       static_cast<const uint8_t*>(alive), static_cast<const float*>(scalars),
       static_cast<const float*>(layer1), static_cast<const float*>(opaque),
       static_cast<const float*>(back), static_cast<float*>(out),
-      static_cast<uint8_t*>(flags), n, gh, gw, s_max, max_small, max_medium,
-      small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y};
-  if (n > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool refr = opaque != nullptr, bk = back != nullptr;
-    if (refr && bk) {
-      launch<true, true>(a, s);
-    } else if (refr) {
-      launch<true, false>(a, s);
-    } else if (bk) {
-      launch<false, true>(a, s);
-    } else {
-      launch<false, false>(a, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+      static_cast<uint8_t*>(flags), static_cast<int*>(work), n, gh, gw, s_max, max_small,
+      max_medium, small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y};
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool refr = opaque != nullptr, bk = back != nullptr;
+  if (refr && bk) return launch<true, true>(a, s);
+  if (refr) return launch<true, false>(a, s);
+  if (bk) return launch<false, true>(a, s);
+  return launch<false, false>(a, s);
+}
+
+// The threads of the persistent grid of the layout (refraction, back
+// depth): the most lanes that one call runs at once.
+extern "C" int sspt_ray_march_grid(int refr, int back) {
+  const int blocks = refr ? (back ? resident_blocks<true, true>() : resident_blocks<true, false>())
+                          : (back ? resident_blocks<false, true>() : resident_blocks<false, false>());
+  return blocks * THREADS;
 }

@@ -82,10 +82,12 @@ _SIGNATURES = {
     "sspt_rowwise_select": [P] * 3 + [I] * 2 + [P],
     # pointers: ray_pos, ray_dir, view_dir, inside, dither, large_step,
     # alive, scalars, layer1, opaque (or null), back (or null), out,
-    # flags; ints n, gh, gw, s_max, max_small, max_medium; floats
-    # small_step, medium_step, thickness, th_inc, step_growth, texel_x,
-    # texel_y; stream.
-    "sspt_ray_march": [P] * 13 + [I] * 6 + [F] * 7 + [P],
+    # flags, work (one int32 the entry point zeroes); ints n, gh, gw,
+    # s_max, max_small, max_medium; floats small_step, medium_step,
+    # thickness, th_inc, step_growth, texel_x, texel_y; stream.
+    "sspt_ray_march": [P] * 14 + [I] * 6 + [F] * 7 + [P],
+    # ints refraction, back depth: P1's persistent grid in threads.
+    "sspt_ray_march_grid": [I, I],
 }
 
 
@@ -197,6 +199,52 @@ def resource_usage() -> list[dict]:
     """``parse_ptxas`` of the built library's report."""
     load_library()
     return parse_ptxas(_library_path().with_suffix(".ptxas.txt").read_text())
+
+
+def sass_loops(so) -> dict:
+    """{kernel: {"instructions": all of its SASS, "loops": the SASS
+    instructions of each loop, fewest first}} from ``cuobjdump -sass`` of
+    the library ``so``: a loop is a backward branch and the code it jumps
+    back over. Empty where cuobjdump is missing."""
+    nvcc = nvcc_path()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
+    loops, name, addrs, labels, branches = {}, None, [], {}, []
+
+    def close():
+        if name is not None:
+            spans = []
+            for at, target in branches:
+                dest = labels.get(target, target) if isinstance(target, str) else target
+                if isinstance(dest, int) and dest <= at:
+                    spans.append(sum(1 for a in addrs if dest <= a <= at))
+            loops[_kernel_name(name)] = dict(instructions=len(addrs), loops=sorted(spans))
+
+    pending = []
+    for line in out.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            close()
+            name, addrs, labels, branches, pending = m.group(1), [], {}, [], []
+        elif m := re.match(r"\s*(\.L_x_\d+):", line):
+            pending.append(m.group(1))
+        elif m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line):
+            at = int(m.group(1), 16)
+            addrs.append(at)
+            for label in pending:
+                labels[label] = at
+            pending = []
+            if b := re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", m.group(2)):
+                branches.append((at, b.group(1) if b.group(1) else int(b.group(2), 16)))
+    close()
+    return loops
+
+
+def library_sass_loops() -> dict:
+    """``sass_loops`` of the built library."""
+    load_library()
+    return sass_loops(_library_path())
 
 
 def check(rc: int, name: str) -> None:
