@@ -52,9 +52,9 @@ Phases (any failure exits non-zero and prints no result line):
      bound, links a lane and warp efficiency), the home prefix x round
      budget A/B; P1 on its own inputs in every bounce of the parity
      headline and parity dual frames (ms, bound, steps a lane, warp
-     efficiency, the warp-steps one thread a lane would issue and the
-     lane-steps over 32, and the issue-limited time of each at the
-     loop's SASS) beside K1 + R1 on the hiz frame's bounce 0; the 256^2
+     efficiency, the warp-steps one thread a lane would issue, those of
+     rounds of 32 alive lanes and the lane-steps over 32, and the
+     issue-limited time of each at the step loop's SASS) beside K1 + R1 on the hiz frame's bounce 0; the 256^2
      golden through P1 (512
      frames, 1 bounce, pooled relative RMSE < 0.035 against
      fixtures/box256_golden_cpu.npz); the hiz-vs-parity deviation of the
@@ -1212,21 +1212,31 @@ def issue_ms(warp_passes: float, sass: int) -> float:
     return warp_passes * sass / ISSUE_PER_S * 1e3
 
 
-def p1_loop_sass() -> dict:
-    """{kernel: SASS instructions of its longest loop} of P1's
-    instances in the built library (empty without cuobjdump)."""
+def round_steps(steps, alive) -> float:
+    """The loop passes of warps whose rounds take 32 alive lanes in lane
+    order (P1's rounds take them from each warp's own chunks, so this is
+    close, not exact): each round runs as many as its longest lane.
+    ``alive``: (N,) like ``steps``."""
+    return warp_steps(steps[alive])
+
+
+def p1_step_sass() -> dict:
+    """{kernel: SASS instructions of its step loop (its longest loop with
+    no warp vote, shuffle or atomic)} of P1's instances in the built
+    library (empty without cuobjdump)."""
     from unitysspathtracingurp_tpu_torch.kernels.build import library_sass_loops
 
-    return {k: max(v["loops"]) for k, v in library_sass_loops().items()
-            if k.startswith("ray_march_kernel") and v["loops"]}
+    return {k: max(v["lane_loops"]) for k, v in library_sass_loops().items()
+            if k.startswith("ray_march_kernel") and v["lane_loops"]}
 
 
 def parity_report(dev, card):
     """Phase 6: P1 on its own inputs in every bounce of the 1080p parity
     headline and parity dual frames (each bit for bit against its plain
     version: a gate), with the warp-steps one thread a lane would issue,
-    the lane-steps over 32 (what perfect refill would issue) and the
-    issue-limited time of each at the loop's SASS; beside K1 + R1 on the
+    those of rounds of 32 alive lanes (what P1's persistent warps issue,
+    nearly), the lane-steps over 32 (what perfect refill would issue) and
+    the issue-limited time of each at the step loop's SASS; beside K1 + R1 on the
     hiz headline frame's bounce-0 inputs."""
     import torch
 
@@ -1234,8 +1244,8 @@ def parity_report(dev, card):
     from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
     from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
 
-    loop_sass = p1_loop_sass()
-    print(f"phase 6 P1 SASS instructions of the loop by instance: {loop_sass}")
+    loop_sass = p1_step_sass()
+    print(f"phase 6 P1 SASS instructions of the step loop by instance: {loop_sass}")
     p1_ms = {}
     for path in ("parity", "parity_dual"):
         calls, s = parity_calls(dev, path)
@@ -1251,17 +1261,18 @@ def parity_report(dev, card):
             ms = cuda_ms(lambda: pt.ray_march(*a), 20)
             p1_ms.setdefault(path, []).append(ms)
             n, alive, lane_steps = steps.numel(), float(a[-1].sum()), float(steps.sum())
-            ws = warp_steps(steps)
-            issue = (f"issue-limited at {sass} SASS a pass {issue_ms(ws, sass):.4f} ms one "
-                     f"thread a lane, {issue_ms(lane_steps / 32, sass):.4f} ms with perfect "
-                     f"refill" if sass else "issue-limited time not measured (no cuobjdump)")
+            ws, rs = warp_steps(steps), round_steps(steps, a[-1].expand(a[5].shape[:-1]).reshape(-1))
+            issue = (f"issue-limited at {sass} SASS a step {issue_ms(ws, sass):.4f} ms one "
+                     f"thread a lane, {issue_ms(rs, sass):.4f} ms in rounds of alive lanes, "
+                     f"{issue_ms(lane_steps / 32, sass):.4f} ms with perfect refill" if sass
+                     else "issue-limited time not measured (no cuobjdump)")
             print(f"phase 6 P1 on the {name} frame's bounce {b} ({n} lanes, {alive:.0f} "
                   f"alive): equal to the plain version {equal}, {ms:.4f} ms, bound "
                   f"{b_['bound_ms']:.4f} ms (share {b_['bound_ms'] / ms:.3f}), "
                   f"{lane_steps / n:.3f} steps a lane, {lane_steps / max(alive, 1):.3f} an alive "
                   f"lane, warp efficiency {warp_efficiency(steps):.4f}; lane-steps "
-                  f"{lane_steps:.0f}, warp-steps one thread a lane {ws:.0f}, lane-steps / 32 "
-                  f"{lane_steps / 32:.0f}; {issue}; hits {ref.hit.float().mean().item():.4f} "
+                  f"{lane_steps:.0f}, warp-steps one thread a lane {ws:.0f}, in rounds of 32 "
+                  f"alive lanes {rs:.0f}, lane-steps / 32 {lane_steps / 32:.0f}; {issue}; hits {ref.hit.float().mean().item():.4f} "
                   f"[{card}]")
             gate(equal, f"P1 bit-exact on the {name} frame's bounce {b}")
             if path == "parity":

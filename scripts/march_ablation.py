@@ -101,41 +101,45 @@ def min_blocks(b: int) -> list:
     return [(BOUNDS, BOUNDS.replace("(THREADS)", f"(THREADS, {b})"))]
 
 
-# The shipped file: persistent warps that refill finished lanes.
-REG_CAMERA = ("  float m[18];\n#pragma unroll\n"
-              "  for (int k = 0; k < 18; ++k) m[k] = __ldg(a.scalars + k);\n")
-SMEM_CAMERA = ("  __shared__ float s_m[18];\n"
-               "  if (threadIdx.x < 18) s_m[threadIdx.x] = a.scalars[threadIdx.x];\n"
-               "  __syncthreads();\n  const float* m = s_m;\n")
-IDX32 = "      const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);\n"
-IDX64 = ("      const size_t texel = static_cast<size_t>(pixel_index(v, a.gh)) * a.gw\n"
-         "                           + pixel_index(u, a.gw);\n")
+# Both files: the camera in shared memory (into registers instead).
+REG_CAMERA = [("  __shared__ float s_m[18];\n",
+               "  float s_m[18];\n#pragma unroll\n"
+               "  for (int k = 0; k < 18; ++k) s_m[k] = __ldg(a.scalars + k);\n"),
+              ("  if (threadIdx.x < 18) s_m[threadIdx.x] = a.scalars[threadIdx.x];\n", "")]
+IDX32 = "const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);"
+IDX64 = ("const size_t texel = static_cast<size_t>(pixel_index(v, a.gh)) * a.gw\n"
+         "                           + pixel_index(u, a.gw);")
+
+# The shipped file: persistent warps in rounds of 32 alive lanes.
+STORES = ("      a.out[lane] = hx;\n      a.out[nn + lane] = hy;\n"
+          "      a.out[2 * nn + lane] = hz;\n      a.out[3 * nn + lane] = hdist;\n"
+          "      a.out[4 * nn + lane] = hu;\n      a.out[5 * nn + lane] = hv;\n"
+          "      a.flags[lane] = hit;\n      a.flags[nn + lane] = back_hit;\n")
+# Rows 3-5 of an alive lane: its steps, its warp and its round.
 COUNT = [
-    ("  const size_t nn = static_cast<size_t>(a.n);\n",
-     "  const size_t nn = static_cast<size_t>(a.n);\n  int passes = 0;\n"),
-    ("    const unsigned idle = __ballot_sync(FULL, lane < 0);\n",
-     "    ++passes;\n    const unsigned idle = __ballot_sync(FULL, lane < 0);\n"),
-    ("    a.out[3 * nn + j] = hdist;\n    a.out[4 * nn + j] = hu;\n    a.out[5 * nn + j] = hv;\n",
-     "    a.out[3 * nn + j] = static_cast<float>(passes) + 0.0f * (hdist + hu + hv);\n"
-     "    a.out[4 * nn + j] = static_cast<float>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);\n"
-     "    a.out[5 * nn + j] = 0.0f;\n"),
+    ("  bool more = true;\n", "  bool more = true;\n  int round = 0;\n"),
+    ("    int filled = 0;\n", "    int filled = 0;\n    ++round;\n"),
+    ("      bool hit = false, back_hit = false;\n",
+     "      bool hit = false, back_hit = false;\n      int steps_run = 0;\n"),
+    ("      for (int i = 1; i <= a.s_max; ++i) {\n",
+     "      for (int i = 1; i <= a.s_max; ++i) {\n        ++steps_run;\n"),
+    ("      a.out[3 * nn + lane] = hdist;\n      a.out[4 * nn + lane] = hu;\n"
+     "      a.out[5 * nn + lane] = hv;\n",
+     "      a.out[3 * nn + lane] = static_cast<float>(steps_run) + 0.0f * (hdist + hu + hv);\n"
+     "      a.out[4 * nn + lane] = static_cast<float>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);\n"
+     "      a.out[5 * nn + lane] = static_cast<float>(round);\n"),
 ]
-NO_STORE = [("  auto finish = [&](int j, float hx, float hy, float hz, float hdist, float hu, "
-             "float hv,\n                    bool hit, bool back_hit) {\n",
-             "  auto finish = [&](int j, float hx, float hy, float hz, float hdist, float hu, "
-             "float hv,\n                    bool hit, bool back_hit) {\n"
-             "    if (!(hdist < 0.0f)) return;\n")]
+# Each chunk taken from the counter when the fill needs it, not a round ahead.
+NO_AHEAD = [
+    ("  int ahead = 0;\n  if (t == 0) ahead = atomicAdd(a.work, 32);\n", "  int ahead = 0;\n"),
+    ("        const int base = __shfl_sync(FULL, ahead, 0);\n",
+     "        if (t == 0) ahead = atomicAdd(a.work, 32);\n"
+     "        const int base = __shfl_sync(FULL, ahead, 0);\n"),
+    ("        if (t == 0 && more) ahead = atomicAdd(a.work, 32);\n", ""),
+]
+NO_STORE = [(STORES, "      if (hdist < 0.0f) {\n" + STORES + "      }\n")]
 
-
-def refill(k: int) -> list:
-    return [("constexpr int REFILL_MIN = 8;", f"constexpr int REFILL_MIN = {k};")]
-
-
-# The parent's file (one thread a lane, the camera in shared memory, a
-# 64-bit texel index).
-P_SMEM_CAMERA = ("  __shared__ float s_m[18];\n"
-                 "  if (threadIdx.x < 18) s_m[threadIdx.x] = a.scalars[threadIdx.x];\n"
-                 "  __syncthreads();\n")
+# The parent's file (one thread a lane): the lane's steps in row 3.
 P_COUNT = [
     ("  bool hit = false, back_hit = false;\n",
      "  bool hit = false, back_hit = false;\n  int steps_run = 0;\n"),
@@ -161,11 +165,8 @@ class Copy(NamedTuple):
 COPIES = {
     "library": Copy([]),
     "count": Copy(COUNT, outputs="count"),
-    "refill-1": Copy(COUNT + refill(1), outputs="count"),
-    "refill-4": Copy(COUNT + refill(4), outputs="count"),
-    "refill-16": Copy(COUNT + refill(16), outputs="count"),
-    "refill-32": Copy(COUNT + refill(32), outputs="count"),
-    "smem-camera": Copy([(REG_CAMERA, SMEM_CAMERA)]),
+    "no-ahead": Copy(NO_AHEAD),
+    "reg-camera": Copy(REG_CAMERA),
     "idx64": Copy([(IDX32, IDX64)]),
     "t64": Copy(threads(64)),
     "t256": Copy(threads(256)),
@@ -176,8 +177,7 @@ COPIES = {
     "parent": Copy([], base="parent"),
     "parent-no-read": Copy(P_COUNT + NO_READ, base="parent", outputs="count-timing"),
     "parent-fast-div": Copy(P_COUNT + FAST_DIV, base="parent", outputs="count-timing"),
-    "parent-reg-camera": Copy([(P_SMEM_CAMERA, REG_CAMERA.replace("m[", "s_m["))],
-                              base="parent"),
+    "parent-reg-camera": Copy(REG_CAMERA, base="parent"),
     "parent-idx32": Copy([(IDX64, IDX32)], base="parent"),
     "parent-t256": Copy(threads(256), base="parent"),
     "parent-min12": Copy(min_blocks(12), base="parent"),
@@ -268,31 +268,32 @@ def use(lib):
 
 
 def loop_sass(libs, name: str, args) -> int | None:
-    """The SASS instructions of the longest loop of the instance of copy
-    ``name`` that ``args`` launch."""
+    """The SASS instructions of the step loop (the longest loop with no
+    warp vote, shuffle or atomic) of the instance of copy ``name`` that
+    ``args`` launch."""
     _, opaque, back = pt.march_depth_images(args[3], args[2])
     loops = libs[name][2].get(f"ray_march_kernel<{int(opaque is not None)},"
                               f"{int(back is not None)}>")
-    return max(loops["loops"]) if loops and loops["loops"] else None
+    return max(loops["lane_loops"]) if loops and loops["lane_loops"] else None
 
 
-def passes_of(copy: Copy, got, ref_steps) -> float:
-    """The loop passes a counting copy's warps issued: a refilling warp's
-    most passes at any of its lanes' finish, summed over warps; one
-    thread a lane, each warp's longest lane."""
+def passes_of(copy: Copy, got, alive) -> float:
+    """The step-loop passes a counting copy's warps issued: each round
+    (one thread a lane: each warp) as many as its longest lane."""
+    steps = got.distance.reshape(-1).round().to(torch.int64)
     if copy.base == "parent":
-        return cs.warp_steps(got.distance.reshape(-1).round().to(torch.int64))
-    passes = got.distance.reshape(-1).round().to(torch.int64)
-    warp = got.uv.reshape(-1, 2)[:, 0].round().to(torch.int64)
-    most = torch.zeros(int(warp.max()) + 1 if warp.numel() else 0, dtype=torch.int64,
-                       device=passes.device)
-    return float(most.scatter_reduce(0, warp, passes, "amax").sum())
+        return cs.warp_steps(steps)
+    uv = got.uv.reshape(-1, 2).round().to(torch.int64)[alive]
+    _, group = torch.unique(uv[:, 0] * (1 << 20) + uv[:, 1], return_inverse=True)
+    most = torch.zeros(int(group.max()) + 1 if group.numel() else 0, dtype=torch.int64,
+                       device=steps.device)
+    return float(most.scatter_reduce(0, group, steps[alive], "amax").sum())
 
 
 def run_set(label, args, libs, results):
     """Time and check every copy on one input set."""
     ref, steps, b = cs.p1_reference(args)
-    n, lane_steps = steps.numel(), float(steps.sum())
+    n, lane_steps, lanes = steps.numel(), float(steps.sum()), args[5].shape[:-1]
     ws = cs.warp_steps(steps)
     row = dict(label=label, n=n, alive=float(args[-1].sum()), lane_steps=lane_steps,
                warp_steps_one_thread_a_lane=ws, perfect_refill_steps=lane_steps / 32,
@@ -313,7 +314,7 @@ def run_set(label, args, libs, results):
             run["equal"] = all(cs.bits_equal(g, r) for g, r in zip(got, ref))
             run["passes"] = ws if copy.base == "parent" else None
         elif copy.outputs.startswith("count"):
-            run["passes"] = passes_of(copy, got, steps)
+            run["passes"] = passes_of(copy, got, args[-1].expand(lanes).reshape(-1))
             if copy.outputs == "count":
                 run["equal"] = all(cs.bits_equal(g, r) for g, r in zip(
                     (got.hit, got.position, got.is_back_hit),

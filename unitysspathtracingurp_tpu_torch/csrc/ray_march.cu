@@ -18,38 +18,44 @@
 // growth of step and thickness while the lane does not search.
 //
 // What bounds it. The bytes are few (a lane's ray, one or two depth
-// reads a step from images that stay in L2, 26 B out), so the work is
-// the steps: about 200 SASS instructions each, five of them IEEE divides
-// or reciprocals. One thread a lane ran each warp for as many steps as
-// its longest lane, and on the compacted bounces of a frame 40-70% of
-// the issued lane-steps did nothing (scripts/march_ablation.py has the
-// split).
+// reads a step from images that stay in L2, 26 B out): the bound is
+// 0.05 ms at 1080p. The work is the steps, ~210 SASS instructions each
+// (five IEEE divides or reciprocals among them), and one thread a lane
+// issued them near the card's issue rate (scripts/march_ablation.py has
+// the split). A warp runs as many steps as its longest lane, and its
+// dead lanes hold slots: on a frame's later bounces and on the
+// uncompacted dual bounces 40-90% of the issued lane-steps did nothing.
 //
-// The design: persistent warps that refill finished lanes. The grid is
-// as many blocks as the card holds at once (SMs x
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once), and each
-// warp keeps 32 lane slots. A lane leaves its slot at a hit (the HLSL's
-// own break), at the screen's edge or after s_max steps, and writes its
-// outputs then: an inactive lane's state never changes in the masked
-// loop, so leaving gives the same bits. Each pass of a warp's loop
-// counts its idle slots with one vote; when REFILL_MIN or more are idle,
-// lane 0 takes that many consecutive lane indices with one atomicAdd on
-// the work counter and the idle slots start them in lane order, so the
-// input loads stay mostly coalesced. A dead lane writes its defaults at
-// once and takes no step. Then every busy slot runs one step. The loop
-// is warp-uniform: every lane reaches each vote, and a finished slot
-// loops idle until the counter is spent and no slot of its warp is busy.
-// The work counter is one int32 a call, allocated by the wrapper and
-// zeroed here on the call's stream, so calls on two streams do not share
-// it. Each lane's layout choice is fixed by its insideObject for the
-// whole march, so its one or two depth images are chosen when it starts
-// and read through __ldg. Settings go in a struct passed by value; the
-// 18 camera scalars (view_proj and the linear-eye-depth coefficients)
-// are read from the device array that K1 and R1 read (schedule_scalars)
-// into registers: passing them by value would need a device-to-host copy
-// of the camera every march, and a __constant__ copy would share K1's
-// one-stream hazard. Outputs are structure-of-arrays: (6, N) f32 rows
-// position x, y, z, distance, u, v and (2, N) bytes hit, back hit.
+// The design: persistent warps whose rounds skip dead lanes. The grid
+// is as many blocks as the card holds at once (SMs x
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once). A warp
+// takes chunks of 32 consecutive lanes from a per-call work counter with
+// one atomicAdd each, issued a chunk ahead of its use so that its
+// latency hides behind a round. A chunk's dead lanes write their
+// defaults at once; its alive lanes fill the warp's 32 slots in order
+// (one vote and a population count), through as many chunks as it takes.
+// Then each slot marches its lane, leaving the step loop at a hit (the
+// HLSL's own break) or at the screen's edge: an inactive lane's state
+// never changes in the masked loop, so leaving gives the same bits. The
+// round's lanes write their outputs together after the longest of them,
+// as one thread a lane did, and the warp starts its next round. The
+// split showed why a warp does not refill single slots as lanes finish:
+// each refill stalled the whole warp on the counter's atomic and the
+// new lane's loads (~1 ns of device time each), and a lane that leaves
+// early has to store alone, scattered (0.12 ms of 0.57 on a frame's
+// first bounce). The work counter is one int32 a call, allocated by the
+// wrapper and zeroed here on the call's stream, so calls on two streams
+// do not share it. Each lane's layout choice is fixed by its
+// insideObject for the whole march, so its one or two depth images are
+// chosen before its loop and read through __ldg. Settings go in a struct
+// passed by value; the 18 camera scalars (view_proj and the
+// linear-eye-depth coefficients) are read from the device array that K1
+// and R1 read (schedule_scalars) into shared memory once a block:
+// passing them by value would need a device-to-host copy of the camera
+// every march, a __constant__ copy would share K1's one-stream hazard,
+// and registers cost occupancy. Outputs are structure-of-arrays: (6, N)
+// f32 rows position x, y, z, distance, u, v and (2, N) bytes hit, back
+// hit.
 //
 // Numerics: --fmad=false and IEEE divides and square roots, and every
 // expression in the order of the plain version. Only which thread runs
@@ -61,7 +67,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int REFILL_MIN = 8;  // idle slots of a warp's 32 that start a refill
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float REAL_EPS = 1.1920929e-07f;
 
@@ -107,169 +112,180 @@ __device__ __forceinline__ float fast_sign(float x) { return x >= 0.0f ? 1.0f : 
 
 template <bool REFR, bool BACK>
 __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
-  float m[18];
-#pragma unroll
-  for (int k = 0; k < 18; ++k) m[k] = __ldg(a.scalars + k);
+  __shared__ float s_m[18];
+  __shared__ int s_lane[THREADS];  // each warp's 32 slots: the lanes of its round
+  if (threadIdx.x < 18) s_m[threadIdx.x] = a.scalars[threadIdx.x];
+  __syncthreads();
+  const float* m = s_m;
   const float zz = m[16], zw = m[17];
-  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  const int t = threadIdx.x & 31;
+  const unsigned below = (1u << t) - 1u;
+  int* const slots = s_lane + (threadIdx.x - t);
   const size_t nn = static_cast<size_t>(a.n);
-  auto finish = [&](int j, float hx, float hy, float hz, float hdist, float hu, float hv,
-                    bool hit, bool back_hit) {
-    a.out[j] = hx;
-    a.out[nn + j] = hy;
-    a.out[2 * nn + j] = hz;
-    a.out[3 * nn + j] = hdist;
-    a.out[4 * nn + j] = hu;
-    a.out[5 * nn + j] = hv;
-    a.flags[j] = hit;
-    a.flags[nn + j] = back_hit;
-  };
 
-  // The slot's lane (-1: idle) and its march state.
-  int lane = -1, i = 0;
-  bool more = true;  // the work counter is not spent (the same in every lane of the warp)
-  bool front = false, in2 = false, start_bin = false;
-  float px = 0.0f, py = 0.0f, pz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  float dither = 0.0f, large_step = 0.0f, step = 0.0f, th = 0.0f, last_diff = 0.0f;
-  float rx = 0.0f, ry = 0.0f, rz = 0.0f;  // the march position
-  float lx = 0.0f, ly = 0.0f, lz = 0.0f;  // the last tested position
-  float lu = 0.0f, lv = 0.0f;
-  const float* test_img = a.layer1;
-  const float* back_img = a.back;
+  // The same in every lane of the warp: the chunk taken ahead (lane 0
+  // holds it), the alive lanes of the current chunk not yet in a slot,
+  // the chunk's first lane, and whether the counter has chunks left.
+  int ahead = 0;
+  if (t == 0) ahead = atomicAdd(a.work, 32);
+  unsigned pend = 0u;
+  int pbase = 0;
+  bool more = true;
   for (;;) {
-    const unsigned idle = __ballot_sync(FULL, lane < 0);
-    if (idle == FULL && !more) break;
-    const int n_idle = __popc(idle);
-    if (more && n_idle >= REFILL_MIN) {
-      int base = 0;
-      if ((threadIdx.x & 31) == 0) base = atomicAdd(a.work, n_idle);
-      base = __shfl_sync(FULL, base, 0);
-      more = base + n_idle < a.n;
-      const int next = base + __popc(idle & below);
-      if (lane < 0 && next < a.n) {
-        if (a.alive[next] && a.s_max > 0) {
-          lane = next;
-          px = a.ray_pos[3 * lane];
-          py = a.ray_pos[3 * lane + 1];
-          pz = a.ray_pos[3 * lane + 2];
-          dx = a.ray_dir[3 * lane];
-          dy = a.ray_dir[3 * lane + 1];
-          dz = a.ray_dir[3 * lane + 2];
-          front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
-                  + dz * a.view_dir[3 * lane + 2] <= 0.0f;
-          const float inside = a.inside[lane];
-          in2 = inside == 2.0f;
-          dither = a.dither[lane];
-          large_step = a.large_step[lane];
-          // The layer each step tests and its back layer (hlsl:79-98).
-          test_img = a.layer1;
-          back_img = a.back;
-          if (REFR && BACK) {
-            test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
-            back_img = inside == 1.0f ? a.opaque : a.back;
-          } else if (REFR) {
-            test_img = inside != 0.0f ? a.opaque : a.layer1;
-          }
-          step = a.small_step;
-          th = a.thickness;
-          start_bin = false;
-          rx = lx = px;
-          ry = ly = py;
-          rz = lz = pz;
-          float lraw;
-          project(m, px, py, pz, lu, lv, lraw);
-          last_diff = 0.0f;
-          i = 0;
-        } else {
-          finish(next, 0.0f, 0.0f, 0.0f, REAL_EPS, 0.0f, 0.0f, false, false);
+    // Fill the warp's slots with the next alive lanes.
+    int filled = 0;
+    while (filled < 32 && (pend != 0u || more)) {
+      if (pend == 0u) {
+        const int base = __shfl_sync(FULL, ahead, 0);
+        more = base + 32 < a.n;
+        if (base >= a.n) break;
+        if (t == 0 && more) ahead = atomicAdd(a.work, 32);
+        const int j = base + t;
+        const bool live = j < a.n && a.alive[j] && a.s_max > 0;
+        if (j < a.n && !live) {  // a dead lane: the defaults at once
+          a.out[j] = 0.0f;
+          a.out[nn + j] = 0.0f;
+          a.out[2 * nn + j] = 0.0f;
+          a.out[3 * nn + j] = REAL_EPS;
+          a.out[4 * nn + j] = 0.0f;
+          a.out[5 * nn + j] = 0.0f;
+          a.flags[j] = 0;
+          a.flags[nn + j] = 0;
         }
+        pend = __ballot_sync(FULL, live);
+        pbase = base;
       }
+      const int take = min(32 - filled, __popc(pend));
+      const int rank = __popc(pend & below);
+      const bool give = ((pend >> t) & 1u) && rank < take;
+      if (give) slots[filled + rank] = pbase + t;
+      pend &= ~__ballot_sync(FULL, give);
+      filled += take;
     }
-    if (lane < 0) continue;
+    __syncwarp();
+    if (filled == 0) break;
+    if (t < filled) {
+      const int lane = slots[t];
+      bool hit = false, back_hit = false;
+      float hx = 0.0f, hy = 0.0f, hz = 0.0f, hdist = REAL_EPS, hu = 0.0f, hv = 0.0f;
+      const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
+                  pz = a.ray_pos[3 * lane + 2];
+      const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
+                  dz = a.ray_dir[3 * lane + 2];
+      const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
+                         + dz * a.view_dir[3 * lane + 2] <= 0.0f;
+      const float inside = a.inside[lane];
+      const float dither = a.dither[lane];
+      const float large_step = a.large_step[lane];
+      // The layer each step tests and its back layer (hlsl:79-98).
+      const float* test_img = a.layer1;
+      const float* back_img = a.back;
+      if (REFR && BACK) {
+        test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
+        back_img = inside == 1.0f ? a.opaque : a.back;
+      } else if (REFR) {
+        test_img = inside != 0.0f ? a.opaque : a.layer1;
+      }
 
-    // Step i of the lane.
-    ++i;
-    if (i == a.max_small + 1) {
-      if (!start_bin) step = a.medium_step;
-      th = a.thickness;
-    }
-    if (i == a.max_medium + 1) {
-      if (!start_bin) step = large_step;
-      th = a.thickness;
-    }
-    const float adv = step + step * dither;
-    rx = rx + adv * dx;
-    ry = ry + adv * dy;
-    rz = rz + adv * dz;
-    float u, v, raw;
-    project(m, rx, ry, rz, u, v, raw);
-    if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
-      // A sub-texel move: the step is consumed untested.
-    } else if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) {
-      finish(lane, 0.0f, 0.0f, 0.0f, REAL_EPS, 0.0f, 0.0f, false, false);  // left the screen
-      lane = -1;
-      continue;
-    } else {
-      const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
-      const float device_depth = __ldg(test_img + texel);
-      const float scene_depth = 1.0f / (device_depth * zz + zw);
-      const float hit_depth = 1.0f / (raw * zz + zw);
-      const float depth_diff = scene_depth - hit_depth;
-      float scene_back = 0.0f, back_diff = 0.0f;
-      bool back_valid = false;
-      if (BACK) {
-        const float device_back = __ldg(back_img + texel);
-        scene_back = 1.0f / (device_back * zz + zw);
-        back_valid = device_back != 0.0f && scene_back >= scene_depth;
-        back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
-      }
-      const bool back_search = !front && hit_depth > scene_back && back_valid;
-      const float sd = back_search ? back_diff : depth_diff;
-      const float sgn = fast_sign(sd);
-      const bool cannot_bin = !in2 && !start_bin
-                              && (front ? hit_depth > scene_back : hit_depth < scene_depth);
-      start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
-      if (start_bin) {
-        const float halved = step * 0.5f;
-        step = fast_sign(halved) == sgn ? halved : -halved;
-      }
-      const bool is_sky = device_depth == 0.0f;
-      bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
-      if (BACK && back_valid) {
-        hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
-                 && !is_sky;
-      }
-      if (hit_ok) {
-        float denom = last_diff - sd;
-        if (fabsf(denom) < 1e-20f) denom = 1e-20f;
-        const float t = last_diff / denom;
-        float hx = rx, hy = ry, hz = rz;
-        if (sgn != fast_sign(last_diff)) {
-          hx = lx + (rx - lx) * t;
-          hy = ly + (ry - ly) * t;
-          hz = lz + (rz - lz) * t;
+      float step = a.small_step, th = a.thickness;
+      bool start_bin = false;
+      float rx = px, ry = py, rz = pz;  // the march position
+      float lx = px, ly = py, lz = pz;  // the last tested position
+      float lu, lv, lraw;
+      project(m, px, py, pz, lu, lv, lraw);
+      float last_diff = 0.0f;
+      for (int i = 1; i <= a.s_max; ++i) {
+        if (i == a.max_small + 1) {
+          if (!start_bin) step = a.medium_step;
+          th = a.thickness;
         }
-        const float ex = rx - px, ey = ry - py, ez = rz - pz;
-        finish(lane, hx, hy, hz, sqrtf(ex * ex + ey * ey + ez * ez), u, v, true,
-               BACK && back_valid && hit_depth > scene_back && sgn > 0.0f);
-        lane = -1;
-        continue;
+        if (i == a.max_medium + 1) {
+          if (!start_bin) step = large_step;
+          th = a.thickness;
+        }
+        const float adv = step + step * dither;
+        rx = rx + adv * dx;
+        ry = ry + adv * dy;
+        rz = rz + adv * dz;
+        float u, v, raw;
+        project(m, rx, ry, rz, u, v, raw);
+        if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
+          continue;  // sub-texel move: the step is consumed untested
+        }
+        if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
+
+        const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
+        const float device_depth = __ldg(test_img + texel);
+        const float scene_depth = 1.0f / (device_depth * zz + zw);
+        const float hit_depth = 1.0f / (raw * zz + zw);
+        const float depth_diff = scene_depth - hit_depth;
+        float scene_back = 0.0f, back_diff = 0.0f;
+        bool back_valid = false;
+        if (BACK) {
+          const float device_back = __ldg(back_img + texel);
+          scene_back = 1.0f / (device_back * zz + zw);
+          back_valid = device_back != 0.0f && scene_back >= scene_depth;
+          back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
+        }
+        const bool back_search = !front && hit_depth > scene_back && back_valid;
+        const float sd = back_search ? back_diff : depth_diff;
+        const float sgn = fast_sign(sd);
+        const bool cannot_bin = inside != 2.0f && !start_bin
+                                && (front ? hit_depth > scene_back : hit_depth < scene_depth);
+        start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
+        if (start_bin) {
+          const float halved = step * 0.5f;
+          step = fast_sign(halved) == sgn ? halved : -halved;
+        }
+        const bool is_sky = device_depth == 0.0f;
+        bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
+        if (BACK && back_valid) {
+          hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
+                   && !is_sky;
+        }
+        if (hit_ok) {
+          float denom = last_diff - sd;
+          if (fabsf(denom) < 1e-20f) denom = 1e-20f;
+          const float tt = last_diff / denom;
+          if (sgn != fast_sign(last_diff)) {
+            hx = lx + (rx - lx) * tt;
+            hy = ly + (ry - ly) * tt;
+            hz = lz + (rz - lz) * tt;
+          } else {
+            hx = rx;
+            hy = ry;
+            hz = rz;
+          }
+          const float ex = rx - px, ey = ry - py, ez = rz - pz;
+          hdist = sqrtf(ex * ex + ey * ey + ez * ez);
+          hu = u;
+          hv = v;
+          back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
+          hit = true;
+          break;
+        }
+        if (!start_bin) {
+          step = step + step * a.step_growth;
+          th = th + a.th_inc;
+        }
+        last_diff = sd;
+        lx = rx;
+        ly = ry;
+        lz = rz;
+        lu = u;
+        lv = v;
       }
-      if (!start_bin) {
-        step = step + step * a.step_growth;
-        th = th + a.th_inc;
-      }
-      last_diff = sd;
-      lx = rx;
-      ly = ry;
-      lz = rz;
-      lu = u;
-      lv = v;
+      // The round's lanes write together, after the longest of them.
+      a.out[lane] = hx;
+      a.out[nn + lane] = hy;
+      a.out[2 * nn + lane] = hz;
+      a.out[3 * nn + lane] = hdist;
+      a.out[4 * nn + lane] = hu;
+      a.out[5 * nn + lane] = hv;
+      a.flags[lane] = hit;
+      a.flags[nn + lane] = back_hit;
     }
-    if (i >= a.s_max) {  // the last step found nothing
-      finish(lane, 0.0f, 0.0f, 0.0f, REAL_EPS, 0.0f, 0.0f, false, false);
-      lane = -1;
-    }
+    __syncwarp();
   }
 }
 

@@ -203,30 +203,36 @@ def resource_usage() -> list[dict]:
 
 def sass_loops(so) -> dict:
     """{kernel: {"instructions": all of its SASS, "loops": the SASS
-    instructions of each loop, fewest first}} from ``cuobjdump -sass`` of
-    the library ``so``: a loop is a backward branch and the code it jumps
-    back over. Empty where cuobjdump is missing."""
+    instructions of each loop, fewest first, "lane_loops": those of the
+    loops with no warp vote, shuffle or atomic in them}} from ``cuobjdump
+    -sass`` of the library ``so``: a loop is a backward branch and the
+    code it jumps back over. Empty where cuobjdump is missing."""
     nvcc = nvcc_path()
     tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
     if tool is None or not tool.exists():
         return {}
     out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
-    loops, name, addrs, labels, branches = {}, None, [], {}, []
+    loops, name, addrs, labels, branches, warp_ops = {}, None, [], {}, [], set()
 
     def close():
         if name is not None:
-            spans = []
+            spans, lane = [], []
             for at, target in branches:
                 dest = labels.get(target, target) if isinstance(target, str) else target
                 if isinstance(dest, int) and dest <= at:
-                    spans.append(sum(1 for a in addrs if dest <= a <= at))
-            loops[_kernel_name(name)] = dict(instructions=len(addrs), loops=sorted(spans))
+                    span = [a for a in addrs if dest <= a <= at]
+                    spans.append(len(span))
+                    if not warp_ops.intersection(span):
+                        lane.append(len(span))
+            loops[_kernel_name(name)] = dict(instructions=len(addrs), loops=sorted(spans),
+                                             lane_loops=sorted(lane))
 
     pending = []
     for line in out.splitlines():
         if m := re.search(r"Function : (\S+)", line):
             close()
             name, addrs, labels, branches, pending = m.group(1), [], {}, [], []
+            warp_ops = set()
         elif m := re.match(r"\s*(\.L_x_\d+):", line):
             pending.append(m.group(1))
         elif m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line):
@@ -235,6 +241,8 @@ def sass_loops(so) -> dict:
             for label in pending:
                 labels[label] = at
             pending = []
+            if re.search(r"\b(VOTE|SHFL|ATOMG?|RED)\b", m.group(2)):
+                warp_ops.add(at)
             if b := re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", m.group(2)):
                 branches.append((at, b.group(1) if b.group(1) else int(b.group(2), 16)))
     close()
