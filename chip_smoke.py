@@ -1212,30 +1212,41 @@ def issue_ms(warp_passes: float, sass: int) -> float:
     return warp_passes * sass / ISSUE_PER_S * 1e3
 
 
-def round_steps(steps, alive) -> float:
-    """The loop passes of warps whose rounds take 32 alive lanes in lane
-    order (P1's rounds take them from each warp's own chunks, so this is
-    close, not exact): each round runs as many as its longest lane.
+def round_steps(steps, alive, span: int) -> float:
+    """The step-loop passes P1's warps issue: each block lists the alive
+    lanes of its ``span`` in order, and each 32 of the list are one
+    warp's round, which runs as many steps as its longest lane.
     ``alive``: (N,) like ``steps``."""
-    return warp_steps(steps[alive])
+    import torch
+
+    block = torch.arange(steps.numel(), device=steps.device) // span
+    alive = alive.to(torch.int64)
+    ends = torch.cumsum(alive, 0)
+    starts = torch.zeros_like(ends)
+    first = torch.unique_consecutive(block, return_counts=True)[1].cumsum(0)[:-1]
+    starts[first] = ends[first - 1]
+    rank = ends - alive - torch.cummax(starts, 0).values  # place in its block's list
+    rounds = block * (span // 32) + rank // 32
+    most = torch.zeros(int(rounds.max()) + 1 if rounds.numel() else 0, dtype=steps.dtype,
+                       device=steps.device)
+    return float(most.scatter_reduce(0, rounds, steps * alive, "amax").sum())
 
 
 def p1_step_sass() -> dict:
     """{kernel: SASS instructions of its step loop (its longest loop with
-    no warp vote, shuffle or atomic)} of P1's instances in the built
-    library (empty without cuobjdump)."""
+    no warp vote, shuffle, atomic or global store)} of P1's instances in
+    the built library (empty without cuobjdump)."""
     from unitysspathtracingurp_tpu_torch.kernels.build import library_sass_loops
 
-    return {k: max(v["lane_loops"]) for k, v in library_sass_loops().items()
-            if k.startswith("ray_march_kernel") and v["lane_loops"]}
+    return {k: max(v["inner_loops"]) for k, v in library_sass_loops().items()
+            if k.startswith("ray_march_kernel") and v["inner_loops"]}
 
 
 def parity_report(dev, card):
     """Phase 6: P1 on its own inputs in every bounce of the 1080p parity
     headline and parity dual frames (each bit for bit against its plain
     version: a gate), with the warp-steps one thread a lane would issue,
-    those of rounds of 32 alive lanes (what P1's persistent warps issue,
-    nearly), the lane-steps over 32 (what perfect refill would issue) and
+    those of P1's rounds of 32 alive lanes, the lane-steps over 32 (what perfect refill would issue) and
     the issue-limited time of each at the step loop's SASS; beside K1 + R1 on the
     hiz headline frame's bounce-0 inputs."""
     import torch
@@ -1244,8 +1255,11 @@ def parity_report(dev, card):
     from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
     from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
 
-    loop_sass = p1_step_sass()
-    print(f"phase 6 P1 SASS instructions of the step loop by instance: {loop_sass}")
+    from unitysspathtracingurp_tpu_torch.kernels.build import load_library
+
+    loop_sass, span = p1_step_sass(), load_library().sspt_ray_march_span()
+    print(f"phase 6 P1 SASS instructions of the step loop by instance: {loop_sass}; "
+          f"{span} lanes a block")
     p1_ms = {}
     for path in ("parity", "parity_dual"):
         calls, s = parity_calls(dev, path)
@@ -1261,7 +1275,8 @@ def parity_report(dev, card):
             ms = cuda_ms(lambda: pt.ray_march(*a), 20)
             p1_ms.setdefault(path, []).append(ms)
             n, alive, lane_steps = steps.numel(), float(a[-1].sum()), float(steps.sum())
-            ws, rs = warp_steps(steps), round_steps(steps, a[-1].expand(a[5].shape[:-1]).reshape(-1))
+            ws = warp_steps(steps)
+            rs = round_steps(steps, a[-1].expand(a[5].shape[:-1]).reshape(-1), span)
             issue = (f"issue-limited at {sass} SASS a step {issue_ms(ws, sass):.4f} ms one "
                      f"thread a lane, {issue_ms(rs, sass):.4f} ms in rounds of alive lanes, "
                      f"{issue_ms(lane_steps / 32, sass):.4f} ms with perfect refill" if sass

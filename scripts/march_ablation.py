@@ -23,30 +23,29 @@ version, on:
 - every bounce's own inputs of a 1080p parity headline frame and of a
   parity dual frame, caught on the way through ``trace_frame``.
 
-Exact copies are held bit for bit on all five outputs. The counting
-copies (``count``, ``refill-*``, ``no-read``, ``fast-div`` and their
-``parent-*`` forms) write, in place of the distance and uv rows, the
-loop passes of the lane's warp so far and its warp (the parent's form:
-the lane's own steps); their hit flags and positions are still held
-bit for bit where the copy is exact in its steps. ``no-read`` and
-``fast-div`` are timing only: ``no-read`` makes each depth from the
-texel index with no memory access (the read's term), ``fast-div``
-replaces the five IEEE divides and reciprocals with ``__fdividef``
-(the divide term). Each is compared per loop pass, since it changes
-where the lanes stop. ``no-store`` drops the output stores (timing
-only). The exact design choices: ``smem-camera`` / ``parent-reg-camera``
-(the camera in shared memory or registers), ``idx64`` / ``parent-idx32``
-(the texel index in 64 or 32 bits), ``t64`` / ``t256`` /
-``parent-t256`` (threads a block) and ``min8`` / ``parent-min12``
-(blocks an SM asked of ptxas); ``refill-K`` refills a warp when K of
-its 32 slots are idle (32: only when all are).
+Exact copies are held bit for bit on all five outputs. ``no-read`` and
+``fast-div`` (and their ``parent-*`` forms) are timing only and write
+each lane's own steps in the distance row: ``no-read`` makes each depth
+from the texel index with no memory access (the read's term),
+``fast-div`` replaces the five IEEE divides and reciprocals with
+``__fdividef`` (the divide term). Each is compared per step-loop pass,
+since it changes where the lanes stop. ``no-store`` drops the alive
+lanes' output stores (timing only). The exact design choices:
+``r1`` / ``r2`` / ``r8`` (rounds of THREADS lanes in a block's span; the
+shipped file has 4), ``reg-camera`` / ``parent-reg-camera`` (the camera
+in registers instead of shared memory), ``idx64`` / ``parent-idx32``
+(the texel index in 64 or 32 bits), ``t64`` / ``t256`` / ``parent-t256``
+(threads a block) and ``min8`` / ``parent-min12`` (blocks an SM asked of
+ptxas).
 
 For each input set it prints the lanes, the lane-steps (the plain
 version's ``steps_out``), the warp-steps one thread a lane issues and
 the lane-steps over 32 (perfect refill), the bound of
-``chip_smoke.p1_reference``, and for each copy its time, its loop
-passes, and the issue-limited time: passes x the loop's SASS / (132 x 4
-x 1.98 GHz). Writes every number to ``--out`` (default
+``chip_smoke.p1_reference``, and for each copy its time, its step-loop
+passes (``chip_smoke.round_steps`` of its span, or ``warp_steps`` one
+thread a lane), and the issue-limited time: passes x the step loop's
+SASS / (132 x 4 x 1.98 GHz). Then P1 summed over each frame's bounces.
+Writes every number to ``--out`` (default
 ``build/march_ablation/march_ablation.json``). Imports nothing of JAX.
 """
 
@@ -110,37 +109,8 @@ IDX32 = "const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);"
 IDX64 = ("const size_t texel = static_cast<size_t>(pixel_index(v, a.gh)) * a.gw\n"
          "                           + pixel_index(u, a.gw);")
 
-# The shipped file: persistent warps in rounds of 32 alive lanes.
-STORES = ("      a.out[lane] = hx;\n      a.out[nn + lane] = hy;\n"
-          "      a.out[2 * nn + lane] = hz;\n      a.out[3 * nn + lane] = hdist;\n"
-          "      a.out[4 * nn + lane] = hu;\n      a.out[5 * nn + lane] = hv;\n"
-          "      a.flags[lane] = hit;\n      a.flags[nn + lane] = back_hit;\n")
-# Rows 3-5 of an alive lane: its steps, its warp and its round.
+# Both files: the lane's own steps in row 3 (a counting copy).
 COUNT = [
-    ("  bool more = true;\n", "  bool more = true;\n  int round = 0;\n"),
-    ("    int filled = 0;\n", "    int filled = 0;\n    ++round;\n"),
-    ("      bool hit = false, back_hit = false;\n",
-     "      bool hit = false, back_hit = false;\n      int steps_run = 0;\n"),
-    ("      for (int i = 1; i <= a.s_max; ++i) {\n",
-     "      for (int i = 1; i <= a.s_max; ++i) {\n        ++steps_run;\n"),
-    ("      a.out[3 * nn + lane] = hdist;\n      a.out[4 * nn + lane] = hu;\n"
-     "      a.out[5 * nn + lane] = hv;\n",
-     "      a.out[3 * nn + lane] = static_cast<float>(steps_run) + 0.0f * (hdist + hu + hv);\n"
-     "      a.out[4 * nn + lane] = static_cast<float>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);\n"
-     "      a.out[5 * nn + lane] = static_cast<float>(round);\n"),
-]
-# Each chunk taken from the counter when the fill needs it, not a round ahead.
-NO_AHEAD = [
-    ("  int ahead = 0;\n  if (t == 0) ahead = atomicAdd(a.work, 32);\n", "  int ahead = 0;\n"),
-    ("        const int base = __shfl_sync(FULL, ahead, 0);\n",
-     "        if (t == 0) ahead = atomicAdd(a.work, 32);\n"
-     "        const int base = __shfl_sync(FULL, ahead, 0);\n"),
-    ("        if (t == 0 && more) ahead = atomicAdd(a.work, 32);\n", ""),
-]
-NO_STORE = [(STORES, "      if (hdist < 0.0f) {\n" + STORES + "      }\n")]
-
-# The parent's file (one thread a lane): the lane's steps in row 3.
-P_COUNT = [
     ("  bool hit = false, back_hit = false;\n",
      "  bool hit = false, back_hit = false;\n  int steps_run = 0;\n"),
     ("    for (int i = 1; i <= a.s_max; ++i) {\n",
@@ -149,13 +119,23 @@ P_COUNT = [
      "  a.out[3 * nn + lane] = static_cast<float>(steps_run) + 0.0f * hdist;\n"),
 ]
 
+# The shipped file: blocks that compact their span into rounds.
+STORES = ("    a.out[lane] = hx;\n    a.out[nn + lane] = hy;\n"
+          "    a.out[2 * nn + lane] = hz;\n    a.out[3 * nn + lane] = hdist;\n"
+          "    a.out[4 * nn + lane] = hu;\n    a.out[5 * nn + lane] = hv;\n"
+          "    a.flags[lane] = hit;\n    a.flags[nn + lane] = back_hit;\n")
+NO_STORE = [(STORES, "    if (hdist < 0.0f) {\n" + STORES + "    }\n")]
+
+
+def rounds(r: int) -> list:
+    return [("constexpr int ROUNDS = 4;", f"constexpr int ROUNDS = {r};")]
+
 
 class Copy(NamedTuple):
     """A copy of ray_march.cu: its replacements, the file they patch
     ("library": the shipped one; "parent": ``--parent``'s), and what its
-    outputs are: "exact" (all five bit for bit), "count" (loop passes in
-    the distance and uv rows; hit flags and positions bit for bit),
-    "count-timing" (loop passes; nothing compared) or "timing"."""
+    outputs are: "exact" (all five bit for bit), "count" (timing only;
+    the lane's steps in the distance row) or "timing"."""
 
     patches: list
     base: str = "library"
@@ -164,28 +144,26 @@ class Copy(NamedTuple):
 
 COPIES = {
     "library": Copy([]),
-    "count": Copy(COUNT, outputs="count"),
-    "no-ahead": Copy(NO_AHEAD),
+    "r1": Copy(rounds(1)),
+    "r2": Copy(rounds(2)),
+    "r8": Copy(rounds(8)),
     "reg-camera": Copy(REG_CAMERA),
     "idx64": Copy([(IDX32, IDX64)]),
     "t64": Copy(threads(64)),
     "t256": Copy(threads(256)),
     "min8": Copy(min_blocks(8)),
-    "no-read": Copy(COUNT + NO_READ, outputs="count-timing"),
-    "fast-div": Copy(COUNT + FAST_DIV, outputs="count-timing"),
+    "no-read": Copy(COUNT + NO_READ, outputs="count"),
+    "fast-div": Copy(COUNT + FAST_DIV, outputs="count"),
     "no-store": Copy(NO_STORE, outputs="timing"),
     "parent": Copy([], base="parent"),
-    "parent-no-read": Copy(P_COUNT + NO_READ, base="parent", outputs="count-timing"),
-    "parent-fast-div": Copy(P_COUNT + FAST_DIV, base="parent", outputs="count-timing"),
+    "parent-no-read": Copy(COUNT + NO_READ, base="parent", outputs="count"),
+    "parent-fast-div": Copy(COUNT + FAST_DIV, base="parent", outputs="count"),
     "parent-reg-camera": Copy(REG_CAMERA, base="parent"),
     "parent-idx32": Copy([(IDX64, IDX32)], base="parent"),
     "parent-t256": Copy(threads(256), base="parent"),
     "parent-min12": Copy(min_blocks(12), base="parent"),
 }
 ENTRY = "sspt_ray_march"
-# The 0-based position of the work-counter pointer in the entry point's
-# arguments; a file without it (one thread a lane) takes the rest shifted.
-WORK_ARG = 13
 
 
 def patched(src: str, patches: list) -> str:
@@ -200,18 +178,6 @@ def patched(src: str, patches: list) -> str:
 
 def file_name(copy: str) -> str:
     return re.sub(r"[^\w-]", "_", copy)
-
-
-class NoWork:
-    """A library whose entry point takes no work counter, called with the
-    shipped wrapper's arguments."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def __getattr__(self, name):
-        fn = getattr(self.lib, name)
-        return (lambda *a: fn(*a[:WORK_ARG], *a[WORK_ARG + 1:])) if name == ENTRY else fn
 
 
 def build_copies(parent: Path | None) -> dict:
@@ -237,22 +203,21 @@ def build_copies(parent: Path | None) -> dict:
             print(f"copy {name} left out: {e}")
             continue
         so = OUT_DIR / f"{file_name(name)}.so"
-        procs[name] = (so, "void* work" in path.read_text(), subprocess.Popen(
+        procs[name] = (so, subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(so), str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, (so, has_work, p) in procs.items():
+    for name, (so, p) in procs.items():
         out = p.communicate()[0]
         if p.returncode != 0:
             print(f"nvcc failed for copy {name}, left out:\n{out}")
             continue
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, ENTRY)
-        sig = build._SIGNATURES[ENTRY]
-        fn.argtypes = sig if has_work else sig[:WORK_ARG] + sig[WORK_ARG + 1:]
-        fn.restype = ctypes.c_int
-        libs[name] = (lib if has_work else NoWork(lib), build.parse_ptxas(out),
-                      build.sass_loops(so))
+        for entry in (ENTRY, "sspt_ray_march_span"):
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = build._SIGNATURES[entry]
+                getattr(lib, entry).restype = ctypes.c_int
+        libs[name] = (lib, build.parse_ptxas(out), build.sass_loops(so))
     return libs
 
 
@@ -269,31 +234,28 @@ def use(lib):
 
 def loop_sass(libs, name: str, args) -> int | None:
     """The SASS instructions of the step loop (the longest loop with no
-    warp vote, shuffle or atomic) of the instance of copy ``name`` that
-    ``args`` launch."""
+    warp vote, shuffle, atomic or global store) of the instance of copy
+    ``name`` that ``args`` launch."""
     _, opaque, back = pt.march_depth_images(args[3], args[2])
     loops = libs[name][2].get(f"ray_march_kernel<{int(opaque is not None)},"
                               f"{int(back is not None)}>")
-    return max(loops["lane_loops"]) if loops and loops["lane_loops"] else None
+    return max(loops["inner_loops"]) if loops and loops["inner_loops"] else None
 
 
-def passes_of(copy: Copy, got, alive) -> float:
-    """The step-loop passes a counting copy's warps issued: each round
-    (one thread a lane: each warp) as many as its longest lane."""
-    steps = got.distance.reshape(-1).round().to(torch.int64)
-    if copy.base == "parent":
-        return cs.warp_steps(steps)
-    uv = got.uv.reshape(-1, 2).round().to(torch.int64)[alive]
-    _, group = torch.unique(uv[:, 0] * (1 << 20) + uv[:, 1], return_inverse=True)
-    most = torch.zeros(int(group.max()) + 1 if group.numel() else 0, dtype=torch.int64,
-                       device=steps.device)
-    return float(most.scatter_reduce(0, group, steps[alive], "amax").sum())
+def passes(libs, name: str, steps, alive) -> float:
+    """The step-loop passes copy ``name`` issues for lanes that take
+    ``steps``: in rounds of its span's alive lanes (``sspt_ray_march_span``),
+    or one thread a lane (each warp as many as its longest lane) in a
+    file without spans."""
+    span = getattr(libs[name][0], "sspt_ray_march_span", None)
+    return cs.round_steps(steps, alive, span()) if span else cs.warp_steps(steps)
 
 
 def run_set(label, args, libs, results):
     """Time and check every copy on one input set."""
     ref, steps, b = cs.p1_reference(args)
-    n, lane_steps, lanes = steps.numel(), float(steps.sum()), args[5].shape[:-1]
+    n, lane_steps = steps.numel(), float(steps.sum())
+    alive = args[-1].expand(args[5].shape[:-1]).reshape(-1)
     ws = cs.warp_steps(steps)
     row = dict(label=label, n=n, alive=float(args[-1].sum()), lane_steps=lane_steps,
                warp_steps_one_thread_a_lane=ws, perfect_refill_steps=lane_steps / 32,
@@ -309,21 +271,17 @@ def run_set(label, args, libs, results):
 
         got = fn()
         torch.cuda.synchronize()
-        run = dict(equal=None, passes=None, sass=loop_sass(libs, name, args))
+        run = dict(equal=None, sass=loop_sass(libs, name, args))
         if copy.outputs == "exact":
             run["equal"] = all(cs.bits_equal(g, r) for g, r in zip(got, ref))
-            run["passes"] = ws if copy.base == "parent" else None
-        elif copy.outputs.startswith("count"):
-            run["passes"] = passes_of(copy, got, args[-1].expand(lanes).reshape(-1))
-            if copy.outputs == "count":
-                run["equal"] = all(cs.bits_equal(g, r) for g, r in zip(
-                    (got.hit, got.position, got.is_back_hit),
-                    (ref.hit, ref.position, ref.is_back_hit)))
+            run["passes"] = passes(libs, name, steps, alive)
+        elif copy.outputs == "count":
+            own = got.distance.reshape(-1).round().to(torch.int64)
+            run["passes"] = passes(libs, name, own * alive, alive)
+        else:
+            run["passes"] = None
         fns[name] = fn
         row["runs"][name] = run
-    # The shipped design's passes are its counting copy's.
-    if "library" in row["runs"] and "count" in row["runs"]:
-        row["runs"]["library"]["passes"] = row["runs"]["count"]["passes"]
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
             row["runs"][name].setdefault("ms_each", []).append(cs.cuda_ms(fns[name], 20))

@@ -633,10 +633,10 @@ def test_ray_march_layouts_bit_exact(march_case, layout, inside):
         assert ref.is_back_hit.any()
 
 
-# P1's persistent warps take lanes from a per-call work counter and refill
-# the slots of finished lanes: the cases of that control flow, each bit for
-# bit against ray_march_ref. Lanes are the glass box's random rays, flat and
-# indexed (an index may repeat), in the plain layout.
+# P1's blocks list the alive lanes of their span and march them in rounds
+# of 32: the cases of that control flow, each bit for bit against
+# ray_march_ref. Lanes are the glass box's random rays, flat and indexed
+# (an index may repeat), in the plain layout.
 def p1_lanes(march_case, idx, alive=None, s_max=24):
     gb, cam, x = march_case
     s = PTSettings(maximum_steps=s_max)
@@ -646,10 +646,10 @@ def p1_lanes(march_case, idx, alive=None, s_max=24):
             flat["view"], flat["scene_dist"], flat["alive"] if alive is None else alive)
 
 
-def p1_grid_threads(refr=False, back=False) -> int:
+def p1_span() -> int:
     from unitysspathtracingurp_tpu_torch.kernels.build import load_library
 
-    return load_library().sspt_ray_march_grid(int(refr), int(back))
+    return load_library().sspt_ray_march_span()
 
 
 def long_lanes(march_case, s_max=40, least=30):
@@ -677,10 +677,10 @@ def test_ray_march_no_lanes(march_case):
 
 
 @pytest.mark.parametrize("times", ["one more", "3.5 x"])
-def test_ray_march_past_the_persistent_grid_bit_exact(march_case, times):
-    grid = p1_grid_threads()
-    assert grid > 0 and grid % 128 == 0
-    n = grid + 1 if times == "one more" else 3 * grid + grid // 2 + 7
+def test_ray_march_past_a_span_bit_exact(march_case, times):
+    span = p1_span()
+    assert span > 0 and span % 128 == 0
+    n = span + 1 if times == "one more" else 3 * span + span // 2 + 7
     dev = march_case[2]["pos"].device
     check_p1(p1_lanes(march_case, torch.arange(n, device=dev) % march_case[2]["pos"][..., 0].numel()),
              0.2)
@@ -700,7 +700,7 @@ def test_ray_march_lone_long_lane_bit_exact(march_case):
     check_p1(p1_lanes(march_case, idx, alive, s_max=40), 0.0)
 
 
-def test_ray_march_back_to_back_calls_reset_the_counter(march_case):
+def test_ray_march_back_to_back_calls_bit_exact(march_case):
     dev = march_case[2]["pos"].device
     n = march_case[2]["pos"][..., 0].numel()
     a = p1_lanes(march_case, torch.arange(n, device=dev))

@@ -21,41 +21,38 @@
 // reads a step from images that stay in L2, 26 B out): the bound is
 // 0.05 ms at 1080p. The work is the steps, ~210 SASS instructions each
 // (five IEEE divides or reciprocals among them), and one thread a lane
-// issued them near the card's issue rate (scripts/march_ablation.py has
-// the split). A warp runs as many steps as its longest lane, and its
-// dead lanes hold slots: on a frame's later bounces and on the
-// uncompacted dual bounces 40-90% of the issued lane-steps did nothing.
+// issued them near the card's issue rate. A warp runs as many steps as
+// its longest lane, and its dead lanes hold slots: on the dual frame's
+// uncompacted later bounces, 70-80% of the lanes are dead and 80-90% of
+// the issued lane-steps did nothing (scripts/march_ablation.py has the
+// split).
 //
-// The design: persistent warps whose rounds skip dead lanes. The grid
-// is as many blocks as the card holds at once (SMs x
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor, queried once). A warp
-// takes chunks of 32 consecutive lanes from a per-call work counter with
-// one atomicAdd each, issued a chunk ahead of its use so that its
-// latency hides behind a round. A chunk's dead lanes write their
-// defaults at once; its alive lanes fill the warp's 32 slots in order
-// (one vote and a population count), through as many chunks as it takes.
-// Then each slot marches its lane, leaving the step loop at a hit (the
-// HLSL's own break) or at the screen's edge: an inactive lane's state
-// never changes in the masked loop, so leaving gives the same bits. The
-// round's lanes write their outputs together after the longest of them,
-// as one thread a lane did, and the warp starts its next round. The
-// split showed why a warp does not refill single slots as lanes finish:
-// each refill stalled the whole warp on the counter's atomic and the
-// new lane's loads (~1 ns of device time each), and a lane that leaves
-// early has to store alone, scattered (0.12 ms of 0.57 on a frame's
-// first bounce). The work counter is one int32 a call, allocated by the
-// wrapper and zeroed here on the call's stream, so calls on two streams
-// do not share it. Each lane's layout choice is fixed by its
-// insideObject for the whole march, so its one or two depth images are
-// chosen before its loop and read through __ldg. Settings go in a struct
-// passed by value; the 18 camera scalars (view_proj and the
-// linear-eye-depth coefficients) are read from the device array that K1
-// and R1 read (schedule_scalars) into shared memory once a block:
-// passing them by value would need a device-to-host copy of the camera
-// every march, a __constant__ copy would share K1's one-stream hazard,
-// and registers cost occupancy. Outputs are structure-of-arrays: (6, N)
-// f32 rows position x, y, z, distance, u, v and (2, N) bytes hit, back
-// hit.
+// The design: each block compacts its own span of SPAN lanes. A block of
+// THREADS threads reads the alive flags of its ROUNDS x THREADS lanes;
+// the dead ones write their defaults at once, and the alive ones are
+// listed in lane order in shared memory (one vote a warp and a prefix of
+// the warps' counts). Then thread k marches the listed lanes k,
+// k + THREADS, ...: each warp takes 32 neighbouring alive lanes a round,
+// leaves the step loop at a hit (the HLSL's own break) or at the
+// screen's edge, writes the round's outputs together and goes on to its
+// next round whatever the block's other warps do. An inactive lane's
+// state never changes in the masked loop, so leaving gives the same
+// bits. A span is contiguous, so a block's lanes stay neighbours on the
+// screen and their depth reads share the SM's L1. The split ruled out
+// the alternatives: warps that refill single slots as lanes finish
+// stalled on the refill's atomic and loads (~1 ns of device time each)
+// and stored each lane alone; persistent warps taking chunks from a
+// work counter lost the spans' locality and their balance on small
+// bounces. Each lane's layout choice is fixed by its insideObject for
+// the whole march, so its one or two depth images are chosen before its
+// loop and read through __ldg. Settings go in a struct passed by value;
+// the 18 camera scalars (view_proj and the linear-eye-depth
+// coefficients) are read from the device array that K1 and R1 read
+// (schedule_scalars) into shared memory once a block: passing them by
+// value would need a device-to-host copy of the camera every march, a
+// __constant__ copy would share K1's one-stream hazard, and registers
+// cost occupancy. Outputs are structure-of-arrays: (6, N) f32 rows
+// position x, y, z, distance, u, v and (2, N) bytes hit, back hit.
 //
 // Numerics: --fmad=false and IEEE divides and square roots, and every
 // expression in the order of the plain version. Only which thread runs
@@ -67,6 +64,8 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int ROUNDS = 4;  // rounds of THREADS lanes in a block's span
+constexpr int SPAN = THREADS * ROUNDS;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float REAL_EPS = 1.1920929e-07f;
 
@@ -84,7 +83,6 @@ struct Args {
   const float* back;        // null without back depth
   float* out;               // (6, N)
   uint8_t* flags;           // (2, N)
-  int* work;                // the lanes taken so far, zeroed per call
   int n, gh, gw, s_max, max_small, max_medium;
   float small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y;
 };
@@ -113,205 +111,179 @@ __device__ __forceinline__ float fast_sign(float x) { return x >= 0.0f ? 1.0f : 
 template <bool REFR, bool BACK>
 __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
   __shared__ float s_m[18];
-  __shared__ int s_lane[THREADS];  // each warp's 32 slots: the lanes of its round
+  __shared__ int s_count[SPAN / 32];  // the alive lanes of each 32 of the span
+  __shared__ int s_lane[SPAN];        // the span's alive lanes, in order
   if (threadIdx.x < 18) s_m[threadIdx.x] = a.scalars[threadIdx.x];
+  const int t = threadIdx.x & 31, warps = THREADS / 32;
+  const int group = threadIdx.x >> 5;
+  const unsigned below = (1u << t) - 1u;
+  const size_t nn = static_cast<size_t>(a.n);
+  const int first = blockIdx.x * SPAN;
+
+  // The span's dead lanes write their defaults at once; its alive lanes
+  // are listed in order.
+  unsigned live[ROUNDS];
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    const int j = first + r * THREADS + static_cast<int>(threadIdx.x);
+    const bool in = j < a.n;
+    const bool alive = in && a.alive[j] && a.s_max > 0;
+    if (in && !alive) {
+      a.out[j] = 0.0f;
+      a.out[nn + j] = 0.0f;
+      a.out[2 * nn + j] = 0.0f;
+      a.out[3 * nn + j] = REAL_EPS;
+      a.out[4 * nn + j] = 0.0f;
+      a.out[5 * nn + j] = 0.0f;
+      a.flags[j] = 0;
+      a.flags[nn + j] = 0;
+    }
+    live[r] = __ballot_sync(FULL, alive);
+    if (t == 0) s_count[r * warps + group] = __popc(live[r]);
+  }
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int r = 0; r < ROUNDS; ++r) {
+    int before = total;
+    for (int g = 0; g < group; ++g) before += s_count[r * warps + g];
+    if ((live[r] >> t) & 1u) {
+      s_lane[before + __popc(live[r] & below)] = first + r * THREADS + static_cast<int>(threadIdx.x);
+    }
+    for (int g = 0; g < warps; ++g) total += s_count[r * warps + g];
+  }
   __syncthreads();
   const float* m = s_m;
   const float zz = m[16], zw = m[17];
-  const int t = threadIdx.x & 31;
-  const unsigned below = (1u << t) - 1u;
-  int* const slots = s_lane + (threadIdx.x - t);
-  const size_t nn = static_cast<size_t>(a.n);
 
-  // The same in every lane of the warp: the chunk taken ahead (lane 0
-  // holds it), the alive lanes of the current chunk not yet in a slot,
-  // the chunk's first lane, and whether the counter has chunks left.
-  int ahead = 0;
-  if (t == 0) ahead = atomicAdd(a.work, 32);
-  unsigned pend = 0u;
-  int pbase = 0;
-  bool more = true;
-  for (;;) {
-    // Fill the warp's slots with the next alive lanes.
-    int filled = 0;
-    while (filled < 32 && (pend != 0u || more)) {
-      if (pend == 0u) {
-        const int base = __shfl_sync(FULL, ahead, 0);
-        more = base + 32 < a.n;
-        if (base >= a.n) break;
-        if (t == 0 && more) ahead = atomicAdd(a.work, 32);
-        const int j = base + t;
-        const bool live = j < a.n && a.alive[j] && a.s_max > 0;
-        if (j < a.n && !live) {  // a dead lane: the defaults at once
-          a.out[j] = 0.0f;
-          a.out[nn + j] = 0.0f;
-          a.out[2 * nn + j] = 0.0f;
-          a.out[3 * nn + j] = REAL_EPS;
-          a.out[4 * nn + j] = 0.0f;
-          a.out[5 * nn + j] = 0.0f;
-          a.flags[j] = 0;
-          a.flags[nn + j] = 0;
-        }
-        pend = __ballot_sync(FULL, live);
-        pbase = base;
-      }
-      const int take = min(32 - filled, __popc(pend));
-      const int rank = __popc(pend & below);
-      const bool give = ((pend >> t) & 1u) && rank < take;
-      if (give) slots[filled + rank] = pbase + t;
-      pend &= ~__ballot_sync(FULL, give);
-      filled += take;
+  // Each thread marches the list's lanes k, k + THREADS, ...: a warp
+  // takes 32 neighbouring alive lanes a round and goes on to its next
+  // round when they are done, whatever the block's other warps do.
+  for (int k = threadIdx.x; k < total; k += THREADS) {
+    const int lane = s_lane[k];
+    bool hit = false, back_hit = false;
+    float hx = 0.0f, hy = 0.0f, hz = 0.0f, hdist = REAL_EPS, hu = 0.0f, hv = 0.0f;
+    const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
+                pz = a.ray_pos[3 * lane + 2];
+    const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
+                dz = a.ray_dir[3 * lane + 2];
+    const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
+                       + dz * a.view_dir[3 * lane + 2] <= 0.0f;
+    const float inside = a.inside[lane];
+    const float dither = a.dither[lane];
+    const float large_step = a.large_step[lane];
+    // The layer each step tests and its back layer (hlsl:79-98).
+    const float* test_img = a.layer1;
+    const float* back_img = a.back;
+    if (REFR && BACK) {
+      test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
+      back_img = inside == 1.0f ? a.opaque : a.back;
+    } else if (REFR) {
+      test_img = inside != 0.0f ? a.opaque : a.layer1;
     }
-    __syncwarp();
-    if (filled == 0) break;
-    if (t < filled) {
-      const int lane = slots[t];
-      bool hit = false, back_hit = false;
-      float hx = 0.0f, hy = 0.0f, hz = 0.0f, hdist = REAL_EPS, hu = 0.0f, hv = 0.0f;
-      const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
-                  pz = a.ray_pos[3 * lane + 2];
-      const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
-                  dz = a.ray_dir[3 * lane + 2];
-      const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
-                         + dz * a.view_dir[3 * lane + 2] <= 0.0f;
-      const float inside = a.inside[lane];
-      const float dither = a.dither[lane];
-      const float large_step = a.large_step[lane];
-      // The layer each step tests and its back layer (hlsl:79-98).
-      const float* test_img = a.layer1;
-      const float* back_img = a.back;
-      if (REFR && BACK) {
-        test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
-        back_img = inside == 1.0f ? a.opaque : a.back;
-      } else if (REFR) {
-        test_img = inside != 0.0f ? a.opaque : a.layer1;
-      }
 
-      float step = a.small_step, th = a.thickness;
-      bool start_bin = false;
-      float rx = px, ry = py, rz = pz;  // the march position
-      float lx = px, ly = py, lz = pz;  // the last tested position
-      float lu, lv, lraw;
-      project(m, px, py, pz, lu, lv, lraw);
-      float last_diff = 0.0f;
-      for (int i = 1; i <= a.s_max; ++i) {
-        if (i == a.max_small + 1) {
-          if (!start_bin) step = a.medium_step;
-          th = a.thickness;
-        }
-        if (i == a.max_medium + 1) {
-          if (!start_bin) step = large_step;
-          th = a.thickness;
-        }
-        const float adv = step + step * dither;
-        rx = rx + adv * dx;
-        ry = ry + adv * dy;
-        rz = rz + adv * dz;
-        float u, v, raw;
-        project(m, rx, ry, rz, u, v, raw);
-        if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
-          continue;  // sub-texel move: the step is consumed untested
-        }
-        if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
-
-        const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
-        const float device_depth = __ldg(test_img + texel);
-        const float scene_depth = 1.0f / (device_depth * zz + zw);
-        const float hit_depth = 1.0f / (raw * zz + zw);
-        const float depth_diff = scene_depth - hit_depth;
-        float scene_back = 0.0f, back_diff = 0.0f;
-        bool back_valid = false;
-        if (BACK) {
-          const float device_back = __ldg(back_img + texel);
-          scene_back = 1.0f / (device_back * zz + zw);
-          back_valid = device_back != 0.0f && scene_back >= scene_depth;
-          back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
-        }
-        const bool back_search = !front && hit_depth > scene_back && back_valid;
-        const float sd = back_search ? back_diff : depth_diff;
-        const float sgn = fast_sign(sd);
-        const bool cannot_bin = inside != 2.0f && !start_bin
-                                && (front ? hit_depth > scene_back : hit_depth < scene_depth);
-        start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
-        if (start_bin) {
-          const float halved = step * 0.5f;
-          step = fast_sign(halved) == sgn ? halved : -halved;
-        }
-        const bool is_sky = device_depth == 0.0f;
-        bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
-        if (BACK && back_valid) {
-          hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
-                   && !is_sky;
-        }
-        if (hit_ok) {
-          float denom = last_diff - sd;
-          if (fabsf(denom) < 1e-20f) denom = 1e-20f;
-          const float tt = last_diff / denom;
-          if (sgn != fast_sign(last_diff)) {
-            hx = lx + (rx - lx) * tt;
-            hy = ly + (ry - ly) * tt;
-            hz = lz + (rz - lz) * tt;
-          } else {
-            hx = rx;
-            hy = ry;
-            hz = rz;
-          }
-          const float ex = rx - px, ey = ry - py, ez = rz - pz;
-          hdist = sqrtf(ex * ex + ey * ey + ez * ez);
-          hu = u;
-          hv = v;
-          back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
-          hit = true;
-          break;
-        }
-        if (!start_bin) {
-          step = step + step * a.step_growth;
-          th = th + a.th_inc;
-        }
-        last_diff = sd;
-        lx = rx;
-        ly = ry;
-        lz = rz;
-        lu = u;
-        lv = v;
+    float step = a.small_step, th = a.thickness;
+    bool start_bin = false;
+    float rx = px, ry = py, rz = pz;  // the march position
+    float lx = px, ly = py, lz = pz;  // the last tested position
+    float lu, lv, lraw;
+    project(m, px, py, pz, lu, lv, lraw);
+    float last_diff = 0.0f;
+    for (int i = 1; i <= a.s_max; ++i) {
+      if (i == a.max_small + 1) {
+        if (!start_bin) step = a.medium_step;
+        th = a.thickness;
       }
-      // The round's lanes write together, after the longest of them.
-      a.out[lane] = hx;
-      a.out[nn + lane] = hy;
-      a.out[2 * nn + lane] = hz;
-      a.out[3 * nn + lane] = hdist;
-      a.out[4 * nn + lane] = hu;
-      a.out[5 * nn + lane] = hv;
-      a.flags[lane] = hit;
-      a.flags[nn + lane] = back_hit;
+      if (i == a.max_medium + 1) {
+        if (!start_bin) step = large_step;
+        th = a.thickness;
+      }
+      const float adv = step + step * dither;
+      rx = rx + adv * dx;
+      ry = ry + adv * dy;
+      rz = rz + adv * dz;
+      float u, v, raw;
+      project(m, rx, ry, rz, u, v, raw);
+      if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
+        continue;  // sub-texel move: the step is consumed untested
+      }
+      if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
+
+      const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
+      const float device_depth = __ldg(test_img + texel);
+      const float scene_depth = 1.0f / (device_depth * zz + zw);
+      const float hit_depth = 1.0f / (raw * zz + zw);
+      const float depth_diff = scene_depth - hit_depth;
+      float scene_back = 0.0f, back_diff = 0.0f;
+      bool back_valid = false;
+      if (BACK) {
+        const float device_back = __ldg(back_img + texel);
+        scene_back = 1.0f / (device_back * zz + zw);
+        back_valid = device_back != 0.0f && scene_back >= scene_depth;
+        back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
+      }
+      const bool back_search = !front && hit_depth > scene_back && back_valid;
+      const float sd = back_search ? back_diff : depth_diff;
+      const float sgn = fast_sign(sd);
+      const bool cannot_bin = inside != 2.0f && !start_bin
+                              && (front ? hit_depth > scene_back : hit_depth < scene_depth);
+      start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
+      if (start_bin) {
+        const float halved = step * 0.5f;
+        step = fast_sign(halved) == sgn ? halved : -halved;
+      }
+      const bool is_sky = device_depth == 0.0f;
+      bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
+      if (BACK && back_valid) {
+        hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
+                 && !is_sky;
+      }
+      if (hit_ok) {
+        float denom = last_diff - sd;
+        if (fabsf(denom) < 1e-20f) denom = 1e-20f;
+        const float tt = last_diff / denom;
+        if (sgn != fast_sign(last_diff)) {
+          hx = lx + (rx - lx) * tt;
+          hy = ly + (ry - ly) * tt;
+          hz = lz + (rz - lz) * tt;
+        } else {
+          hx = rx;
+          hy = ry;
+          hz = rz;
+        }
+        const float ex = rx - px, ey = ry - py, ez = rz - pz;
+        hdist = sqrtf(ex * ex + ey * ey + ez * ez);
+        hu = u;
+        hv = v;
+        back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
+        hit = true;
+        break;
+      }
+      if (!start_bin) {
+        step = step + step * a.step_growth;
+        th = th + a.th_inc;
+      }
+      last_diff = sd;
+      lx = rx;
+      ly = ry;
+      lz = rz;
+      lu = u;
+      lv = v;
     }
-    __syncwarp();
+    a.out[lane] = hx;
+    a.out[nn + lane] = hy;
+    a.out[2 * nn + lane] = hz;
+    a.out[3 * nn + lane] = hdist;
+    a.out[4 * nn + lane] = hu;
+    a.out[5 * nn + lane] = hv;
+    a.flags[lane] = hit;
+    a.flags[nn + lane] = back_hit;
   }
 }
 
-// The blocks the card holds at once, queried on the first call. The
-// grid's size does not change what a lane computes: the warps take lanes
-// until the counter is spent.
 template <bool REFR, bool BACK>
-int resident_blocks() {
-  static const int blocks = [] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ray_march_kernel<REFR, BACK>,
-                                                  THREADS, 0);
-    return sms * per_sm > 0 ? sms * per_sm : 1;
-  }();
-  return blocks;
-}
-
-template <bool REFR, bool BACK>
-int launch(const Args& a, cudaStream_t stream) {
-  const int needed = (a.n + THREADS - 1) / THREADS, resident = resident_blocks<REFR, BACK>();
-  const cudaError_t e = cudaMemsetAsync(a.work, 0, sizeof(int), stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ray_march_kernel<REFR, BACK><<<needed < resident ? needed : resident, THREADS, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+void launch(const Args& a, cudaStream_t stream) {
+  ray_march_kernel<REFR, BACK><<<(a.n + SPAN - 1) / SPAN, THREADS, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -320,9 +292,9 @@ extern "C" int sspt_ray_march(
     const void* ray_pos, const void* ray_dir, const void* view_dir, const void* inside,
     const void* dither, const void* large_step, const void* alive, const void* scalars,
     const void* layer1, const void* opaque, const void* back, void* out, void* flags,
-    void* work, int n, int gh, int gw, int s_max, int max_small, int max_medium,
-    float small_step, float medium_step, float thickness, float th_inc, float step_growth,
-    float texel_x, float texel_y, void* stream) {
+    int n, int gh, int gw, int s_max, int max_small, int max_medium, float small_step,
+    float medium_step, float thickness, float th_inc, float step_growth, float texel_x,
+    float texel_y, void* stream) {
   const Args a = {
       static_cast<const float*>(ray_pos), static_cast<const float*>(ray_dir),
       static_cast<const float*>(view_dir), static_cast<const float*>(inside),
@@ -330,21 +302,23 @@ extern "C" int sspt_ray_march(
       static_cast<const uint8_t*>(alive), static_cast<const float*>(scalars),
       static_cast<const float*>(layer1), static_cast<const float*>(opaque),
       static_cast<const float*>(back), static_cast<float*>(out),
-      static_cast<uint8_t*>(flags), static_cast<int*>(work), n, gh, gw, s_max, max_small,
-      max_medium, small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y};
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool refr = opaque != nullptr, bk = back != nullptr;
-  if (refr && bk) return launch<true, true>(a, s);
-  if (refr) return launch<true, false>(a, s);
-  if (bk) return launch<false, true>(a, s);
-  return launch<false, false>(a, s);
+      static_cast<uint8_t*>(flags), n, gh, gw, s_max, max_small, max_medium,
+      small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y};
+  if (n > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool refr = opaque != nullptr, bk = back != nullptr;
+    if (refr && bk) {
+      launch<true, true>(a, s);
+    } else if (refr) {
+      launch<true, false>(a, s);
+    } else if (bk) {
+      launch<false, true>(a, s);
+    } else {
+      launch<false, false>(a, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// The threads of the persistent grid of the layout (refraction, back
-// depth): the most lanes that one call runs at once.
-extern "C" int sspt_ray_march_grid(int refr, int back) {
-  const int blocks = refr ? (back ? resident_blocks<true, true>() : resident_blocks<true, false>())
-                          : (back ? resident_blocks<false, true>() : resident_blocks<false, false>());
-  return blocks * THREADS;
-}
+// The lanes one block compacts and marches.
+extern "C" int sspt_ray_march_span() { return SPAN; }

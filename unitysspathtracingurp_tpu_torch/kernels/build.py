@@ -82,12 +82,12 @@ _SIGNATURES = {
     "sspt_rowwise_select": [P] * 3 + [I] * 2 + [P],
     # pointers: ray_pos, ray_dir, view_dir, inside, dither, large_step,
     # alive, scalars, layer1, opaque (or null), back (or null), out,
-    # flags, work (one int32 the entry point zeroes); ints n, gh, gw,
-    # s_max, max_small, max_medium; floats small_step, medium_step,
-    # thickness, th_inc, step_growth, texel_x, texel_y; stream.
-    "sspt_ray_march": [P] * 14 + [I] * 6 + [F] * 7 + [P],
-    # ints refraction, back depth: P1's persistent grid in threads.
-    "sspt_ray_march_grid": [I, I],
+    # flags; ints n, gh, gw, s_max, max_small, max_medium; floats
+    # small_step, medium_step, thickness, th_inc, step_growth, texel_x,
+    # texel_y; stream.
+    "sspt_ray_march": [P] * 13 + [I] * 6 + [F] * 7 + [P],
+    # P1's span: the lanes one block compacts and marches.
+    "sspt_ray_march_span": [],
 }
 
 
@@ -203,8 +203,9 @@ def resource_usage() -> list[dict]:
 
 def sass_loops(so) -> dict:
     """{kernel: {"instructions": all of its SASS, "loops": the SASS
-    instructions of each loop, fewest first, "lane_loops": those of the
-    loops with no warp vote, shuffle or atomic in them}} from ``cuobjdump
+    instructions of each loop, fewest first, "inner_loops": those of the
+    loops with no warp vote, shuffle, atomic or global store in them}}
+    from ``cuobjdump
     -sass`` of the library ``so``: a loop is a backward branch and the
     code it jumps back over. Empty where cuobjdump is missing."""
     nvcc = nvcc_path()
@@ -225,7 +226,7 @@ def sass_loops(so) -> dict:
                     if not warp_ops.intersection(span):
                         lane.append(len(span))
             loops[_kernel_name(name)] = dict(instructions=len(addrs), loops=sorted(spans),
-                                             lane_loops=sorted(lane))
+                                             inner_loops=sorted(lane))
 
     pending = []
     for line in out.splitlines():
@@ -241,7 +242,7 @@ def sass_loops(so) -> dict:
             for label in pending:
                 labels[label] = at
             pending = []
-            if re.search(r"\b(VOTE|SHFL|ATOMG?|RED)\b", m.group(2)):
+            if re.search(r"\b(VOTE|SHFL|ATOMG?|RED|STG)\b", m.group(2)):
                 warp_ops.add(at)
             if b := re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", m.group(2)):
                 branches.append((at, b.group(1) if b.group(1) else int(b.group(2), 16)))

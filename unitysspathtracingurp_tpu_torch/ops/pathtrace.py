@@ -270,11 +270,10 @@ def ray_march(cfg, settings, variants, gb, cam, ray_pos, ray_dir, inside, dither
         raise RuntimeError("ray_march: depth images must be (height, width) of the G-buffer")
     out = torch.empty((6, n), dtype=fl, device=ray_pos.device)
     flags = torch.empty((2, n), dtype=torch.uint8, device=ray_pos.device)
-    work = torch.empty(1, dtype=torch.int32, device=ray_pos.device)  # zeroed by the kernel's entry
     rc = lib.sspt_ray_march(
         *[t.data_ptr() for t in ins],
         *[0 if img is None else img.data_ptr() for img in images],
-        out.data_ptr(), flags.data_ptr(), work.data_ptr(),
+        out.data_ptr(), flags.data_ptr(),
         n, gb.height, gb.width, settings.maximum_steps, cfg.max_small_step,
         cfg.max_medium_step, f32(cfg.small_step_size), f32(cfg.medium_step_size),
         f32(cfg.marching_thickness), f32(cfg.marching_thickness * cfg.thickness_growth),
