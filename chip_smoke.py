@@ -1212,24 +1212,28 @@ def issue_ms(warp_passes: float, sass: int) -> float:
     return warp_passes * sass / ISSUE_PER_S * 1e3
 
 
-def round_steps(steps, alive, span: int) -> float:
-    """The step-loop passes P1's warps issue: each block lists the alive
-    lanes of its ``span`` in order, and each 32 of the list are one
-    warp's round, which runs as many steps as its longest lane.
-    ``alive``: (N,) like ``steps``."""
+def round_steps(steps, alive, span: int, most_compacted: int | None = None) -> float:
+    """The step-loop passes P1's warps issue: each block of ``span``
+    threads with at most ``most_compacted`` alive lanes (default: span -
+    32, where that frees a warp) lists them in order, and each 32 of the
+    list are one warp; any other block keeps each lane on its own thread.
+    A warp runs as many steps as its longest lane. ``alive``: (N,) like
+    ``steps``."""
     import torch
 
-    block = torch.arange(steps.numel(), device=steps.device) // span
+    most_compacted = span - 32 if most_compacted is None else most_compacted
+    place = torch.arange(steps.numel(), device=steps.device)
+    block = place // span
     alive = alive.to(torch.int64)
+    total = torch.zeros(int(block.max()) + 1 if block.numel() else 0, dtype=torch.int64,
+                        device=steps.device).index_add_(0, block, alive)
     ends = torch.cumsum(alive, 0)
-    starts = torch.zeros_like(ends)
-    first = torch.unique_consecutive(block, return_counts=True)[1].cumsum(0)[:-1]
-    starts[first] = ends[first - 1]
-    rank = ends - alive - torch.cummax(starts, 0).values  # place in its block's list
-    rounds = block * (span // 32) + rank // 32
-    most = torch.zeros(int(rounds.max()) + 1 if rounds.numel() else 0, dtype=steps.dtype,
+    rank = ends - alive - torch.cat([total.new_zeros(1), total.cumsum(0)[:-1]])[block]
+    where = torch.where(total[block] <= most_compacted, rank, place - block * span)
+    warps = block * (span // 32) + where // 32
+    most = torch.zeros(int(warps.max()) + 1 if warps.numel() else 0, dtype=steps.dtype,
                        device=steps.device)
-    return float(most.scatter_reduce(0, rounds, steps * alive, "amax").sum())
+    return float(most.scatter_reduce(0, warps, steps * alive, "amax").sum())
 
 
 def p1_step_sass() -> dict:

@@ -31,8 +31,9 @@ from the texel index with no memory access (the read's term),
 ``__fdividef`` (the divide term). Each is compared per step-loop pass,
 since it changes where the lanes stop. ``no-store`` drops the alive
 lanes' output stores (timing only). The exact design choices:
-``r1`` / ``r2`` / ``r8`` (rounds of THREADS lanes in a block's span; the
-shipped file has 4), ``reg-camera`` / ``parent-reg-camera`` (the camera
+``compact-all`` / ``compact-none`` (a block compacts its alive lanes
+always or never; the shipped file does where that frees a warp),
+``reg-camera`` / ``parent-reg-camera`` (the camera
 in registers instead of shared memory), ``idx64`` / ``parent-idx32``
 (the texel index in 64 or 32 bits), ``t64`` / ``t256`` / ``parent-t256``
 (threads a block) and ``min8`` / ``parent-min12`` (blocks an SM asked of
@@ -111,24 +112,26 @@ IDX64 = ("const size_t texel = static_cast<size_t>(pixel_index(v, a.gh)) * a.gw\
 
 # Both files: the lane's own steps in row 3 (a counting copy).
 COUNT = [
-    ("  bool hit = false, back_hit = false;\n",
-     "  bool hit = false, back_hit = false;\n  int steps_run = 0;\n"),
-    ("    for (int i = 1; i <= a.s_max; ++i) {\n",
-     "    for (int i = 1; i <= a.s_max; ++i) {\n      ++steps_run;\n"),
-    ("  a.out[3 * nn + lane] = hdist;\n",
-     "  a.out[3 * nn + lane] = static_cast<float>(steps_run) + 0.0f * hdist;\n"),
+    ("bool hit = false, back_hit = false;\n",
+     "bool hit = false, back_hit = false;\n  int steps_run = 0;\n"),
+    ("for (int i = 1; i <= a.s_max; ++i) {\n",
+     "for (int i = 1; i <= a.s_max; ++i) {\n      ++steps_run;\n"),
+    ("a.out[3 * nn + lane] = hdist;\n",
+     "a.out[3 * nn + lane] = static_cast<float>(steps_run) + 0.0f * hdist;\n"),
 ]
 
-# The shipped file: blocks that compact their span into rounds.
-STORES = ("    a.out[lane] = hx;\n    a.out[nn + lane] = hy;\n"
-          "    a.out[2 * nn + lane] = hz;\n    a.out[3 * nn + lane] = hdist;\n"
-          "    a.out[4 * nn + lane] = hu;\n    a.out[5 * nn + lane] = hv;\n"
-          "    a.flags[lane] = hit;\n    a.flags[nn + lane] = back_hit;\n")
-NO_STORE = [(STORES, "    if (hdist < 0.0f) {\n" + STORES + "    }\n")]
+# The shipped file: blocks that compact their alive lanes where that
+# frees a warp.
+STORES = ("  a.out[lane] = hx;\n  a.out[nn + lane] = hy;\n"
+          "  a.out[2 * nn + lane] = hz;\n  a.out[3 * nn + lane] = hdist;\n"
+          "  a.out[4 * nn + lane] = hu;\n  a.out[5 * nn + lane] = hv;\n"
+          "  a.flags[lane] = hit;\n  a.flags[nn + lane] = back_hit;\n")
+NO_STORE = [(STORES, "  if (hdist < 0.0f) {\n" + STORES + "  }\n")]
+COMPACT = "  if (total <= THREADS - 32) {\n"
 
 
-def rounds(r: int) -> list:
-    return [("constexpr int ROUNDS = 4;", f"constexpr int ROUNDS = {r};")]
+def compact(when: str) -> list:
+    return [(COMPACT, f"  if ({when}) {{\n")]
 
 
 class Copy(NamedTuple):
@@ -140,13 +143,13 @@ class Copy(NamedTuple):
     patches: list
     base: str = "library"
     outputs: str = "exact"
+    most_compacted: int | None = None  # chip_smoke.round_steps's; None: span - 32
 
 
 COPIES = {
     "library": Copy([]),
-    "r1": Copy(rounds(1)),
-    "r2": Copy(rounds(2)),
-    "r8": Copy(rounds(8)),
+    "compact-all": Copy(compact("true"), most_compacted=128),
+    "compact-none": Copy(compact("false"), most_compacted=-1),
     "reg-camera": Copy(REG_CAMERA),
     "idx64": Copy([(IDX32, IDX64)]),
     "t64": Copy(threads(64)),
@@ -244,11 +247,13 @@ def loop_sass(libs, name: str, args) -> int | None:
 
 def passes(libs, name: str, steps, alive) -> float:
     """The step-loop passes copy ``name`` issues for lanes that take
-    ``steps``: in rounds of its span's alive lanes (``sspt_ray_march_span``),
-    or one thread a lane (each warp as many as its longest lane) in a
-    file without spans."""
+    ``steps``: ``chip_smoke.round_steps`` of its blocks
+    (``sspt_ray_march_span``), or one thread a lane (each warp as many as
+    its longest lane) in a file without that entry point."""
     span = getattr(libs[name][0], "sspt_ray_march_span", None)
-    return cs.round_steps(steps, alive, span()) if span else cs.warp_steps(steps)
+    if span is None:
+        return cs.warp_steps(steps)
+    return cs.round_steps(steps, alive, span(), COPIES[name].most_compacted)
 
 
 def run_set(label, args, libs, results):

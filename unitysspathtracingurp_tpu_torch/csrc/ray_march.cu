@@ -27,24 +27,24 @@
 // the issued lane-steps did nothing (scripts/march_ablation.py has the
 // split).
 //
-// The design: each block compacts its own span of SPAN lanes. A block of
-// THREADS threads reads the alive flags of its ROUNDS x THREADS lanes;
-// the dead ones write their defaults at once, and the alive ones are
-// listed in lane order in shared memory (one vote a warp and a prefix of
-// the warps' counts). Then thread k marches the listed lanes k,
-// k + THREADS, ...: each warp takes 32 neighbouring alive lanes a round,
-// leaves the step loop at a hit (the HLSL's own break) or at the
-// screen's edge, writes the round's outputs together and goes on to its
-// next round whatever the block's other warps do. An inactive lane's
-// state never changes in the masked loop, so leaving gives the same
-// bits. A span is contiguous, so a block's lanes stay neighbours on the
-// screen and their depth reads share the SM's L1. The split ruled out
-// the alternatives: warps that refill single slots as lanes finish
-// stalled on the refill's atomic and loads (~1 ns of device time each)
-// and stored each lane alone; persistent warps taking chunks from a
-// work counter lost the spans' locality and their balance on small
-// bounces. Each lane's layout choice is fixed by its insideObject for
-// the whole march, so its one or two depth images are chosen before its
+// The design: one thread a lane in blocks of THREADS lanes, and each
+// block drops its dead lanes. The dead lanes write their defaults at
+// once. Where the block's alive lanes fit in one warp fewer (at most
+// THREADS - 32), they move to its first threads in lane order (one vote a
+// warp, the warps' counts in shared memory, a prefix), and the warps left
+// empty exit; else each thread keeps its own lane. Then each
+// thread marches its lane, leaving the step loop at a hit (the HLSL's
+// own break) or at the screen's edge: an inactive lane's state never
+// changes in the masked loop, so leaving gives the same bits. A block's
+// lanes stay neighbours on the screen, so their depth reads share the
+// SM's L1. The split ruled out the alternatives. Warps that refill single
+// slots as lanes finish stalled on the refill's atomic and loads (~1 ns
+// of device time each) and stored each lane alone. Persistent warps
+// taking chunks from a work counter lost the blocks' locality and their
+// balance on small bounces. Blocks that march two or more rounds of
+// compacted lanes cut the grid below what small bounces need to fill the
+// card. Each lane's layout choice is fixed by its insideObject for the
+// whole march, so its one or two depth images are chosen before its
 // loop and read through __ldg. Settings go in a struct passed by value;
 // the 18 camera scalars (view_proj and the linear-eye-depth
 // coefficients) are read from the device array that K1 and R1 read
@@ -64,8 +64,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int ROUNDS = 4;  // rounds of THREADS lanes in a block's span
-constexpr int SPAN = THREADS * ROUNDS;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float REAL_EPS = 1.1920929e-07f;
 
@@ -111,179 +109,168 @@ __device__ __forceinline__ float fast_sign(float x) { return x >= 0.0f ? 1.0f : 
 template <bool REFR, bool BACK>
 __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
   __shared__ float s_m[18];
-  __shared__ int s_count[SPAN / 32];  // the alive lanes of each 32 of the span
-  __shared__ int s_lane[SPAN];        // the span's alive lanes, in order
+  __shared__ int s_count[THREADS / 32];  // the alive lanes of each warp's 32
+  __shared__ int s_lane[THREADS];        // the block's alive lanes, in order
   if (threadIdx.x < 18) s_m[threadIdx.x] = a.scalars[threadIdx.x];
-  const int t = threadIdx.x & 31, warps = THREADS / 32;
-  const int group = threadIdx.x >> 5;
-  const unsigned below = (1u << t) - 1u;
+  const int t = threadIdx.x & 31, group = threadIdx.x >> 5;
   const size_t nn = static_cast<size_t>(a.n);
-  const int first = blockIdx.x * SPAN;
 
-  // The span's dead lanes write their defaults at once; its alive lanes
-  // are listed in order.
-  unsigned live[ROUNDS];
-#pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const int j = first + r * THREADS + static_cast<int>(threadIdx.x);
-    const bool in = j < a.n;
-    const bool alive = in && a.alive[j] && a.s_max > 0;
-    if (in && !alive) {
-      a.out[j] = 0.0f;
-      a.out[nn + j] = 0.0f;
-      a.out[2 * nn + j] = 0.0f;
-      a.out[3 * nn + j] = REAL_EPS;
-      a.out[4 * nn + j] = 0.0f;
-      a.out[5 * nn + j] = 0.0f;
-      a.flags[j] = 0;
-      a.flags[nn + j] = 0;
-    }
-    live[r] = __ballot_sync(FULL, alive);
-    if (t == 0) s_count[r * warps + group] = __popc(live[r]);
+  // A dead lane writes its defaults at once.
+  const int j = blockIdx.x * THREADS + static_cast<int>(threadIdx.x);
+  const bool in = j < a.n;
+  const bool alive = in && a.alive[j] && a.s_max > 0;
+  if (in && !alive) {
+    a.out[j] = 0.0f;
+    a.out[nn + j] = 0.0f;
+    a.out[2 * nn + j] = 0.0f;
+    a.out[3 * nn + j] = REAL_EPS;
+    a.out[4 * nn + j] = 0.0f;
+    a.out[5 * nn + j] = 0.0f;
+    a.flags[j] = 0;
+    a.flags[nn + j] = 0;
   }
+  const unsigned live = __ballot_sync(FULL, alive);
+  if (t == 0) s_count[group] = __popc(live);
   __syncthreads();
-  int total = 0;
-#pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    int before = total;
-    for (int g = 0; g < group; ++g) before += s_count[r * warps + g];
-    if ((live[r] >> t) & 1u) {
-      s_lane[before + __popc(live[r] & below)] = first + r * THREADS + static_cast<int>(threadIdx.x);
-    }
-    for (int g = 0; g < warps; ++g) total += s_count[r * warps + g];
+  int total = 0, before = 0;
+  for (int g = 0; g < THREADS / 32; ++g) {
+    total += s_count[g];
+    before += g < group ? s_count[g] : 0;
   }
-  __syncthreads();
+  // Where that frees a warp, the block's alive lanes move to its first
+  // threads, in order; else each thread keeps its own lane.
+  int lane = alive ? j : -1;
+  if (total <= THREADS - 32) {
+    if (alive) s_lane[before + __popc(live & ((1u << t) - 1u))] = j;
+    __syncthreads();
+    lane = static_cast<int>(threadIdx.x) < total ? s_lane[threadIdx.x] : -1;
+  }
+  if (lane < 0) return;
   const float* m = s_m;
   const float zz = m[16], zw = m[17];
 
-  // Each thread marches the list's lanes k, k + THREADS, ...: a warp
-  // takes 32 neighbouring alive lanes a round and goes on to its next
-  // round when they are done, whatever the block's other warps do.
-  for (int k = threadIdx.x; k < total; k += THREADS) {
-    const int lane = s_lane[k];
-    bool hit = false, back_hit = false;
-    float hx = 0.0f, hy = 0.0f, hz = 0.0f, hdist = REAL_EPS, hu = 0.0f, hv = 0.0f;
-    const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
-                pz = a.ray_pos[3 * lane + 2];
-    const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
-                dz = a.ray_dir[3 * lane + 2];
-    const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
-                       + dz * a.view_dir[3 * lane + 2] <= 0.0f;
-    const float inside = a.inside[lane];
-    const float dither = a.dither[lane];
-    const float large_step = a.large_step[lane];
-    // The layer each step tests and its back layer (hlsl:79-98).
-    const float* test_img = a.layer1;
-    const float* back_img = a.back;
-    if (REFR && BACK) {
-      test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
-      back_img = inside == 1.0f ? a.opaque : a.back;
-    } else if (REFR) {
-      test_img = inside != 0.0f ? a.opaque : a.layer1;
-    }
-
-    float step = a.small_step, th = a.thickness;
-    bool start_bin = false;
-    float rx = px, ry = py, rz = pz;  // the march position
-    float lx = px, ly = py, lz = pz;  // the last tested position
-    float lu, lv, lraw;
-    project(m, px, py, pz, lu, lv, lraw);
-    float last_diff = 0.0f;
-    for (int i = 1; i <= a.s_max; ++i) {
-      if (i == a.max_small + 1) {
-        if (!start_bin) step = a.medium_step;
-        th = a.thickness;
-      }
-      if (i == a.max_medium + 1) {
-        if (!start_bin) step = large_step;
-        th = a.thickness;
-      }
-      const float adv = step + step * dither;
-      rx = rx + adv * dx;
-      ry = ry + adv * dy;
-      rz = rz + adv * dz;
-      float u, v, raw;
-      project(m, rx, ry, rz, u, v, raw);
-      if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
-        continue;  // sub-texel move: the step is consumed untested
-      }
-      if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
-
-      const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
-      const float device_depth = __ldg(test_img + texel);
-      const float scene_depth = 1.0f / (device_depth * zz + zw);
-      const float hit_depth = 1.0f / (raw * zz + zw);
-      const float depth_diff = scene_depth - hit_depth;
-      float scene_back = 0.0f, back_diff = 0.0f;
-      bool back_valid = false;
-      if (BACK) {
-        const float device_back = __ldg(back_img + texel);
-        scene_back = 1.0f / (device_back * zz + zw);
-        back_valid = device_back != 0.0f && scene_back >= scene_depth;
-        back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
-      }
-      const bool back_search = !front && hit_depth > scene_back && back_valid;
-      const float sd = back_search ? back_diff : depth_diff;
-      const float sgn = fast_sign(sd);
-      const bool cannot_bin = inside != 2.0f && !start_bin
-                              && (front ? hit_depth > scene_back : hit_depth < scene_depth);
-      start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
-      if (start_bin) {
-        const float halved = step * 0.5f;
-        step = fast_sign(halved) == sgn ? halved : -halved;
-      }
-      const bool is_sky = device_depth == 0.0f;
-      bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
-      if (BACK && back_valid) {
-        hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
-                 && !is_sky;
-      }
-      if (hit_ok) {
-        float denom = last_diff - sd;
-        if (fabsf(denom) < 1e-20f) denom = 1e-20f;
-        const float tt = last_diff / denom;
-        if (sgn != fast_sign(last_diff)) {
-          hx = lx + (rx - lx) * tt;
-          hy = ly + (ry - ly) * tt;
-          hz = lz + (rz - lz) * tt;
-        } else {
-          hx = rx;
-          hy = ry;
-          hz = rz;
-        }
-        const float ex = rx - px, ey = ry - py, ez = rz - pz;
-        hdist = sqrtf(ex * ex + ey * ey + ez * ez);
-        hu = u;
-        hv = v;
-        back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
-        hit = true;
-        break;
-      }
-      if (!start_bin) {
-        step = step + step * a.step_growth;
-        th = th + a.th_inc;
-      }
-      last_diff = sd;
-      lx = rx;
-      ly = ry;
-      lz = rz;
-      lu = u;
-      lv = v;
-    }
-    a.out[lane] = hx;
-    a.out[nn + lane] = hy;
-    a.out[2 * nn + lane] = hz;
-    a.out[3 * nn + lane] = hdist;
-    a.out[4 * nn + lane] = hu;
-    a.out[5 * nn + lane] = hv;
-    a.flags[lane] = hit;
-    a.flags[nn + lane] = back_hit;
+  bool hit = false, back_hit = false;
+  float hx = 0.0f, hy = 0.0f, hz = 0.0f, hdist = REAL_EPS, hu = 0.0f, hv = 0.0f;
+  const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
+              pz = a.ray_pos[3 * lane + 2];
+  const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
+              dz = a.ray_dir[3 * lane + 2];
+  const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
+                     + dz * a.view_dir[3 * lane + 2] <= 0.0f;
+  const float inside = a.inside[lane];
+  const float dither = a.dither[lane];
+  const float large_step = a.large_step[lane];
+  // The layer each step tests and its back layer (hlsl:79-98).
+  const float* test_img = a.layer1;
+  const float* back_img = a.back;
+  if (REFR && BACK) {
+    test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
+    back_img = inside == 1.0f ? a.opaque : a.back;
+  } else if (REFR) {
+    test_img = inside != 0.0f ? a.opaque : a.layer1;
   }
+
+  float step = a.small_step, th = a.thickness;
+  bool start_bin = false;
+  float rx = px, ry = py, rz = pz;  // the march position
+  float lx = px, ly = py, lz = pz;  // the last tested position
+  float lu, lv, lraw;
+  project(m, px, py, pz, lu, lv, lraw);
+  float last_diff = 0.0f;
+  for (int i = 1; i <= a.s_max; ++i) {
+    if (i == a.max_small + 1) {
+      if (!start_bin) step = a.medium_step;
+      th = a.thickness;
+    }
+    if (i == a.max_medium + 1) {
+      if (!start_bin) step = large_step;
+      th = a.thickness;
+    }
+    const float adv = step + step * dither;
+    rx = rx + adv * dx;
+    ry = ry + adv * dy;
+    rz = rz + adv * dz;
+    float u, v, raw;
+    project(m, rx, ry, rz, u, v, raw);
+    if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
+      continue;  // sub-texel move: the step is consumed untested
+    }
+    if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
+
+    const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
+    const float device_depth = __ldg(test_img + texel);
+    const float scene_depth = 1.0f / (device_depth * zz + zw);
+    const float hit_depth = 1.0f / (raw * zz + zw);
+    const float depth_diff = scene_depth - hit_depth;
+    float scene_back = 0.0f, back_diff = 0.0f;
+    bool back_valid = false;
+    if (BACK) {
+      const float device_back = __ldg(back_img + texel);
+      scene_back = 1.0f / (device_back * zz + zw);
+      back_valid = device_back != 0.0f && scene_back >= scene_depth;
+      back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
+    }
+    const bool back_search = !front && hit_depth > scene_back && back_valid;
+    const float sd = back_search ? back_diff : depth_diff;
+    const float sgn = fast_sign(sd);
+    const bool cannot_bin = inside != 2.0f && !start_bin
+                            && (front ? hit_depth > scene_back : hit_depth < scene_depth);
+    start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
+    if (start_bin) {
+      const float halved = step * 0.5f;
+      step = fast_sign(halved) == sgn ? halved : -halved;
+    }
+    const bool is_sky = device_depth == 0.0f;
+    bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
+    if (BACK && back_valid) {
+      hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
+               && !is_sky;
+    }
+    if (hit_ok) {
+      float denom = last_diff - sd;
+      if (fabsf(denom) < 1e-20f) denom = 1e-20f;
+      const float tt = last_diff / denom;
+      if (sgn != fast_sign(last_diff)) {
+        hx = lx + (rx - lx) * tt;
+        hy = ly + (ry - ly) * tt;
+        hz = lz + (rz - lz) * tt;
+      } else {
+        hx = rx;
+        hy = ry;
+        hz = rz;
+      }
+      const float ex = rx - px, ey = ry - py, ez = rz - pz;
+      hdist = sqrtf(ex * ex + ey * ey + ez * ez);
+      hu = u;
+      hv = v;
+      back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
+      hit = true;
+      break;
+    }
+    if (!start_bin) {
+      step = step + step * a.step_growth;
+      th = th + a.th_inc;
+    }
+    last_diff = sd;
+    lx = rx;
+    ly = ry;
+    lz = rz;
+    lu = u;
+    lv = v;
+  }
+  a.out[lane] = hx;
+  a.out[nn + lane] = hy;
+  a.out[2 * nn + lane] = hz;
+  a.out[3 * nn + lane] = hdist;
+  a.out[4 * nn + lane] = hu;
+  a.out[5 * nn + lane] = hv;
+  a.flags[lane] = hit;
+  a.flags[nn + lane] = back_hit;
 }
 
 template <bool REFR, bool BACK>
 void launch(const Args& a, cudaStream_t stream) {
-  ray_march_kernel<REFR, BACK><<<(a.n + SPAN - 1) / SPAN, THREADS, 0, stream>>>(a);
+  ray_march_kernel<REFR, BACK><<<(a.n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -321,4 +308,4 @@ extern "C" int sspt_ray_march(
 }
 
 // The lanes one block compacts and marches.
-extern "C" int sspt_ray_march_span() { return SPAN; }
+extern "C" int sspt_ray_march_span() { return THREADS; }
