@@ -85,8 +85,10 @@ struct Args {
   float small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y;
 };
 
+// floorf then the conversion, in one rounding-down conversion: t is in
+// (0, 1) here (the screen test comes first), so the two agree.
 __device__ __forceinline__ int pixel_index(float t, int size) {
-  const int i = static_cast<int>(floorf(t * static_cast<float>(size)));
+  const int i = __float2int_rd(t * static_cast<float>(size));
   return min(max(i, 0), size - 1);
 }
 
@@ -115,20 +117,9 @@ __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
   const int t = threadIdx.x & 31, group = threadIdx.x >> 5;
   const size_t nn = static_cast<size_t>(a.n);
 
-  // A dead lane writes its defaults at once.
   const int j = blockIdx.x * THREADS + static_cast<int>(threadIdx.x);
   const bool in = j < a.n;
   const bool alive = in && a.alive[j] && a.s_max > 0;
-  if (in && !alive) {
-    a.out[j] = 0.0f;
-    a.out[nn + j] = 0.0f;
-    a.out[2 * nn + j] = 0.0f;
-    a.out[3 * nn + j] = REAL_EPS;
-    a.out[4 * nn + j] = 0.0f;
-    a.out[5 * nn + j] = 0.0f;
-    a.flags[j] = 0;
-    a.flags[nn + j] = 0;
-  }
   const unsigned live = __ballot_sync(FULL, alive);
   if (t == 0) s_count[group] = __popc(live);
   __syncthreads();
@@ -137,126 +128,143 @@ __global__ void __launch_bounds__(THREADS) ray_march_kernel(Args a) {
     total += s_count[g];
     before += g < group ? s_count[g] : 0;
   }
-  // Where that frees a warp, the block's alive lanes move to its first
-  // threads, in order; else each thread keeps its own lane.
-  int lane = alive ? j : -1;
+  // Where that frees a warp, the dead lanes write their defaults at once
+  // and the alive lanes move to the block's first threads, in order; else
+  // each thread keeps its own lane.
+  int lane = j;
+  bool run = alive;
   if (total <= THREADS - 32) {
+    if (in && !alive) {
+      a.out[j] = 0.0f;
+      a.out[nn + j] = 0.0f;
+      a.out[2 * nn + j] = 0.0f;
+      a.out[3 * nn + j] = REAL_EPS;
+      a.out[4 * nn + j] = 0.0f;
+      a.out[5 * nn + j] = 0.0f;
+      a.flags[j] = 0;
+      a.flags[nn + j] = 0;
+    }
     if (alive) s_lane[before + __popc(live & ((1u << t) - 1u))] = j;
     __syncthreads();
-    lane = static_cast<int>(threadIdx.x) < total ? s_lane[threadIdx.x] : -1;
+    run = static_cast<int>(threadIdx.x) < total;
+    if (!run) return;
+    lane = s_lane[threadIdx.x];
+  } else if (!in) {
+    return;
   }
-  if (lane < 0) return;
   const float* m = s_m;
   const float zz = m[16], zw = m[17];
 
   bool hit = false, back_hit = false;
   float hx = 0.0f, hy = 0.0f, hz = 0.0f, hdist = REAL_EPS, hu = 0.0f, hv = 0.0f;
-  const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
-              pz = a.ray_pos[3 * lane + 2];
-  const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
-              dz = a.ray_dir[3 * lane + 2];
-  const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
-                     + dz * a.view_dir[3 * lane + 2] <= 0.0f;
-  const float inside = a.inside[lane];
-  const float dither = a.dither[lane];
-  const float large_step = a.large_step[lane];
-  // The layer each step tests and its back layer (hlsl:79-98).
-  const float* test_img = a.layer1;
-  const float* back_img = a.back;
-  if (REFR && BACK) {
-    test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
-    back_img = inside == 1.0f ? a.opaque : a.back;
-  } else if (REFR) {
-    test_img = inside != 0.0f ? a.opaque : a.layer1;
-  }
+  if (run) {
+    const float px = a.ray_pos[3 * lane], py = a.ray_pos[3 * lane + 1],
+                pz = a.ray_pos[3 * lane + 2];
+    const float dx = a.ray_dir[3 * lane], dy = a.ray_dir[3 * lane + 1],
+                dz = a.ray_dir[3 * lane + 2];
+    const bool front = dx * a.view_dir[3 * lane] + dy * a.view_dir[3 * lane + 1]
+                       + dz * a.view_dir[3 * lane + 2] <= 0.0f;
+    const float inside = a.inside[lane];
+    const float dither = a.dither[lane];
+    const float large_step = a.large_step[lane];
+    // The layer each step tests and its back layer (hlsl:79-98).
+    const float* test_img = a.layer1;
+    const float* back_img = a.back;
+    if (REFR && BACK) {
+      test_img = inside == 1.0f ? a.back : (inside == 2.0f ? a.opaque : a.layer1);
+      back_img = inside == 1.0f ? a.opaque : a.back;
+    } else if (REFR) {
+      test_img = inside != 0.0f ? a.opaque : a.layer1;
+    }
 
-  float step = a.small_step, th = a.thickness;
-  bool start_bin = false;
-  float rx = px, ry = py, rz = pz;  // the march position
-  float lx = px, ly = py, lz = pz;  // the last tested position
-  float lu, lv, lraw;
-  project(m, px, py, pz, lu, lv, lraw);
-  float last_diff = 0.0f;
-  for (int i = 1; i <= a.s_max; ++i) {
-    if (i == a.max_small + 1) {
-      if (!start_bin) step = a.medium_step;
-      th = a.thickness;
-    }
-    if (i == a.max_medium + 1) {
-      if (!start_bin) step = large_step;
-      th = a.thickness;
-    }
-    const float adv = step + step * dither;
-    rx = rx + adv * dx;
-    ry = ry + adv * dy;
-    rz = rz + adv * dz;
-    float u, v, raw;
-    project(m, rx, ry, rz, u, v, raw);
-    if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
-      continue;  // sub-texel move: the step is consumed untested
-    }
-    if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
-
-    const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
-    const float device_depth = __ldg(test_img + texel);
-    const float scene_depth = 1.0f / (device_depth * zz + zw);
-    const float hit_depth = 1.0f / (raw * zz + zw);
-    const float depth_diff = scene_depth - hit_depth;
-    float scene_back = 0.0f, back_diff = 0.0f;
-    bool back_valid = false;
-    if (BACK) {
-      const float device_back = __ldg(back_img + texel);
-      scene_back = 1.0f / (device_back * zz + zw);
-      back_valid = device_back != 0.0f && scene_back >= scene_depth;
-      back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
-    }
-    const bool back_search = !front && hit_depth > scene_back && back_valid;
-    const float sd = back_search ? back_diff : depth_diff;
-    const float sgn = fast_sign(sd);
-    const bool cannot_bin = inside != 2.0f && !start_bin
-                            && (front ? hit_depth > scene_back : hit_depth < scene_depth);
-    start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
-    if (start_bin) {
-      const float halved = step * 0.5f;
-      step = fast_sign(halved) == sgn ? halved : -halved;
-    }
-    const bool is_sky = device_depth == 0.0f;
-    bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
-    if (BACK && back_valid) {
-      hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
-               && !is_sky;
-    }
-    if (hit_ok) {
-      float denom = last_diff - sd;
-      if (fabsf(denom) < 1e-20f) denom = 1e-20f;
-      const float tt = last_diff / denom;
-      if (sgn != fast_sign(last_diff)) {
-        hx = lx + (rx - lx) * tt;
-        hy = ly + (ry - ly) * tt;
-        hz = lz + (rz - lz) * tt;
-      } else {
-        hx = rx;
-        hy = ry;
-        hz = rz;
+    float step = a.small_step, th = a.thickness;
+    bool start_bin = false;
+    float rx = px, ry = py, rz = pz;  // the march position
+    float lx = px, ly = py, lz = pz;  // the last tested position
+    float lu, lv, lraw;
+    project(m, px, py, pz, lu, lv, lraw);
+    float last_diff = 0.0f;
+    for (int i = 1; i <= a.s_max; ++i) {
+      if (i == a.max_small + 1) {
+        if (!start_bin) step = a.medium_step;
+        th = a.thickness;
       }
-      const float ex = rx - px, ey = ry - py, ez = rz - pz;
-      hdist = sqrtf(ex * ex + ey * ey + ez * ez);
-      hu = u;
-      hv = v;
-      back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
-      hit = true;
-      break;
+      if (i == a.max_medium + 1) {
+        if (!start_bin) step = large_step;
+        th = a.thickness;
+      }
+      const float adv = step + step * dither;
+      rx = rx + adv * dx;
+      ry = ry + adv * dy;
+      rz = rz + adv * dz;
+      float u, v, raw;
+      project(m, rx, ry, rz, u, v, raw);
+      if (i <= a.max_medium && fabsf(u - lu) < a.texel_x && fabsf(v - lv) < a.texel_y) {
+        continue;  // sub-texel move: the step is consumed untested
+      }
+      if (!(u > 0.0f && u < 1.0f && v > 0.0f && v < 1.0f)) break;  // left the screen
+
+      const int texel = pixel_index(v, a.gh) * a.gw + pixel_index(u, a.gw);
+      const float device_depth = __ldg(test_img + texel);
+      const float scene_depth = 1.0f / (device_depth * zz + zw);
+      const float hit_depth = 1.0f / (raw * zz + zw);
+      const float depth_diff = scene_depth - hit_depth;
+      float scene_back = 0.0f, back_diff = 0.0f;
+      bool back_valid = false;
+      if (BACK) {
+        const float device_back = __ldg(back_img + texel);
+        scene_back = 1.0f / (device_back * zz + zw);
+        back_valid = device_back != 0.0f && scene_back >= scene_depth;
+        back_diff = back_valid ? hit_depth - scene_back : depth_diff - th;
+      }
+      const bool back_search = !front && hit_depth > scene_back && back_valid;
+      const float sd = back_search ? back_diff : depth_diff;
+      const float sgn = fast_sign(sd);
+      const bool cannot_bin = inside != 2.0f && !start_bin
+                              && (front ? hit_depth > scene_back : hit_depth < scene_depth);
+      start_bin = !cannot_bin && (start_bin || sgn == -1.0f);
+      if (start_bin) {
+        const float halved = step * 0.5f;
+        step = fast_sign(halved) == sgn ? halved : -halved;
+      }
+      const bool is_sky = device_depth == 0.0f;
+      bool hit_ok = depth_diff <= 0.0f && depth_diff >= -th && !is_sky;
+      if (BACK && back_valid) {
+        hit_ok = depth_diff <= 0.0f && hit_depth <= fmaxf(scene_back, scene_depth + step)
+                 && !is_sky;
+      }
+      if (hit_ok) {
+        float denom = last_diff - sd;
+        if (fabsf(denom) < 1e-20f) denom = 1e-20f;
+        const float tt = last_diff / denom;
+        if (sgn != fast_sign(last_diff)) {
+          hx = lx + (rx - lx) * tt;
+          hy = ly + (ry - ly) * tt;
+          hz = lz + (rz - lz) * tt;
+        } else {
+          hx = rx;
+          hy = ry;
+          hz = rz;
+        }
+        const float ex = rx - px, ey = ry - py, ez = rz - pz;
+        hdist = sqrtf(ex * ex + ey * ey + ez * ez);
+        hu = u;
+        hv = v;
+        back_hit = BACK && back_valid && hit_depth > scene_back && sgn > 0.0f;
+        hit = true;
+        break;
+      }
+      if (!start_bin) {
+        step = step + step * a.step_growth;
+        th = th + a.th_inc;
+      }
+      last_diff = sd;
+      lx = rx;
+      ly = ry;
+      lz = rz;
+      lu = u;
+      lv = v;
     }
-    if (!start_bin) {
-      step = step + step * a.step_growth;
-      th = th + a.th_inc;
-    }
-    last_diff = sd;
-    lx = rx;
-    ly = ry;
-    lz = rz;
-    lu = u;
-    lv = v;
   }
   a.out[lane] = hx;
   a.out[nn + lane] = hy;
