@@ -52,11 +52,11 @@ Phases (any failure exits non-zero and prints no result line):
      bound, links a lane and warp efficiency), the home prefix x round
      budget A/B; P1 on its own inputs in every bounce of the parity
      headline and parity dual frames (ms, bound, steps a lane, warp
-     efficiency, the warp-steps one thread a lane would issue, those of
-     rounds of 32 alive lanes and the lane-steps over 32, and the
-     issue-limited time of each at the step loop's SASS) beside K1 + R1 on the hiz frame's bounce 0; the 256^2
-     golden through P1 (512
-     frames, 1 bounce, pooled relative RMSE < 0.035 against
+     efficiency, the warp-steps one thread a lane would issue, those P1
+     issues (its blocks drop their dead lanes where that frees a warp)
+     and the lane-steps over 32, and the issue-limited time of each at
+     the step loop's SASS) beside K1 + R1 on the hiz frame's bounce 0;
+     the 256^2 golden through P1 (512 frames, 1 bounce, pooled relative RMSE < 0.035 against
      fixtures/box256_golden_cpu.npz); the hiz-vs-parity deviation of the
      1080p headline and dual frames (128 frames each, common seeds);
 then one JSON line of per-kernel numbers, the card line again, and the
@@ -820,8 +820,8 @@ def r1_reference(args, kw, dual: bool = False):
 
 def warp_steps(steps) -> float:
     """The loop passes that warps of 32 consecutive lanes issue, one
-    thread a lane (as R1 maps them): each warp runs
-    as many as its longest lane."""
+    thread a lane (as R1 maps them): each warp runs as many as its
+    longest lane."""
     import torch
 
     pad = (-steps.numel()) % 32
@@ -1250,16 +1250,16 @@ def parity_report(dev, card):
     """Phase 6: P1 on its own inputs in every bounce of the 1080p parity
     headline and parity dual frames (each bit for bit against its plain
     version: a gate), with the warp-steps one thread a lane would issue,
-    those of P1's rounds of 32 alive lanes, the lane-steps over 32 (what perfect refill would issue) and
-    the issue-limited time of each at the step loop's SASS; beside K1 + R1 on the
-    hiz headline frame's bounce-0 inputs."""
+    those P1 issues (``round_steps``), the lane-steps over 32 (what
+    perfect refill would issue) and the issue-limited time of each at the
+    step loop's SASS; beside K1 + R1 on the hiz headline frame's bounce-0
+    inputs."""
     import torch
 
+    from unitysspathtracingurp_tpu_torch.kernels.build import load_library
     from unitysspathtracingurp_tpu_torch.ops import fused_schedule as fs
     from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
     from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
-
-    from unitysspathtracingurp_tpu_torch.kernels.build import load_library
 
     loop_sass, span = p1_step_sass(), load_library().sspt_ray_march_span()
     print(f"phase 6 P1 SASS instructions of the step loop by instance: {loop_sass}; "
@@ -1268,8 +1268,8 @@ def parity_report(dev, card):
     for path in ("parity", "parity_dual"):
         calls, s = parity_calls(dev, path)
         _, opaque, back = pt.march_depth_images(calls[0][3], s.variants())
-        sass = loop_sass.get(f"ray_march_kernel<{int(opaque is not None)},{int(back is not None)}>")
-        tiles = ph.build_tiles_for(calls[0][3], calls[0][4], s.variants())
+        sass = loop_sass.get(
+            f"ray_march_kernel<{int(opaque is not None)},{int(back is not None)}>")
         name = PATH_NAMES[path].split(" (")[0]
         for b, a in enumerate(calls):
             got = pt.ray_march(*a)
@@ -1282,7 +1282,7 @@ def parity_report(dev, card):
             ws = warp_steps(steps)
             rs = round_steps(steps, a[-1].expand(a[5].shape[:-1]).reshape(-1), span)
             issue = (f"issue-limited at {sass} SASS a step {issue_ms(ws, sass):.4f} ms one "
-                     f"thread a lane, {issue_ms(rs, sass):.4f} ms in rounds of alive lanes, "
+                     f"thread a lane, {issue_ms(rs, sass):.4f} ms as P1 issues them, "
                      f"{issue_ms(lane_steps / 32, sass):.4f} ms with perfect refill" if sass
                      else "issue-limited time not measured (no cuobjdump)")
             print(f"phase 6 P1 on the {name} frame's bounce {b} ({n} lanes, {alive:.0f} "
@@ -1290,13 +1290,14 @@ def parity_report(dev, card):
                   f"{b_['bound_ms']:.4f} ms (share {b_['bound_ms'] / ms:.3f}), "
                   f"{lane_steps / n:.3f} steps a lane, {lane_steps / max(alive, 1):.3f} an alive "
                   f"lane, warp efficiency {warp_efficiency(steps):.4f}; lane-steps "
-                  f"{lane_steps:.0f}, warp-steps one thread a lane {ws:.0f}, in rounds of 32 "
-                  f"alive lanes {rs:.0f}, lane-steps / 32 {lane_steps / 32:.0f}; {issue}; hits {ref.hit.float().mean().item():.4f} "
-                  f"[{card}]")
+                  f"{lane_steps:.0f}, warp-steps one thread a lane {ws:.0f}, as P1 issues them "
+                  f"{rs:.0f}, lane-steps / 32 {lane_steps / 32:.0f}; {issue}; hits "
+                  f"{ref.hit.float().mean().item():.4f} [{card}]")
             gate(equal, f"P1 bit-exact on the {name} frame's bounce {b}")
             if path == "parity":
+                hiz = ph.ray_march_hiz(*a, tiles=ph.build_tiles_for(a[3], a[4], s.variants()))
                 print(f"phase 6 hiz march (4 rounds) vs P1 on the parity headline frame's bounce "
-                      f"{b}: {march_agreement(ref, ph.ray_march_hiz(*a, tiles=tiles), a[-1], H_FULL, W_FULL)}")
+                      f"{b}: {march_agreement(ref, hiz, a[-1], H_FULL, W_FULL)}")
     k1_a, k1_kw = frame_calls(dev, "headline", "schedule_pack")[0][0]
     r1_a, r1_kw = frame_calls(dev, "headline", "resolve_rounds")[0][0]
     k1_ms = cuda_ms(lambda: fs.schedule_pack(*k1_a, **k1_kw), 20)

@@ -33,8 +33,7 @@ since it changes where the lanes stop. ``no-store`` drops the alive
 lanes' output stores (timing only). The exact design choices:
 ``compact-all`` / ``compact-none`` (a block compacts its alive lanes
 always or never; the shipped file does where that frees a warp),
-``floorf`` (the texel index through ``floorf`` and a conversion, not one
-rounding-down conversion), ``dead-alone`` (a dead lane of a block that
+``dead-alone`` (a dead lane of a block that
 keeps its lanes writes alone, not with its warp), ``reg-camera`` / ``parent-reg-camera`` (the camera
 in registers instead of shared memory), ``idx64`` / ``parent-idx32``
 (the texel index in 64 or 32 bits), ``t64`` / ``t256`` / ``parent-t256``
@@ -130,9 +129,6 @@ STORES = ("  a.out[lane] = hx;\n  a.out[nn + lane] = hy;\n"
           "  a.flags[lane] = hit;\n  a.flags[nn + lane] = back_hit;\n")
 NO_STORE = [(STORES, "  if (hdist < 0.0f) {\n" + STORES + "  }\n")]
 COMPACT = "  if (total <= THREADS - 32) {\n"
-# The texel index through floorf and then the conversion.
-FLOORF = [("  const int i = __float2int_rd(t * static_cast<float>(size));\n",
-           "  const int i = static_cast<int>(floorf(t * static_cast<float>(size)));\n")]
 # Dead lanes of a block that keeps its lanes in place write alone, at once.
 DEAD_ALONE = [("  } else if (!in) {\n    return;\n  }\n",
                "  } else if (!in) {\n    return;\n  } else if (!alive) {\n"
@@ -162,7 +158,6 @@ COPIES = {
     "library": Copy([]),
     "compact-all": Copy(compact("true"), most_compacted=128),
     "compact-none": Copy(compact("false"), most_compacted=-1),
-    "floorf": Copy(FLOORF),
     "dead-alone": Copy(DEAD_ALONE),
     "reg-camera": Copy(REG_CAMERA),
     "idx64": Copy([(IDX32, IDX64)]),

@@ -554,7 +554,8 @@ def test_schedule_pack_home_kernel_dither_bit_exact(home_case):
 # its depth images there) against ray_march_ref, in each layout with
 # insideObject 0, 1 and 2 and a random per-lane dither; and in the plain
 # layout the cases of the loop's exits: s_max 16 and 40, N not a
-# multiple of the block, every lane dead, and the dither alone.
+# multiple of the block, every lane dead, the dither alone, and a quarter
+# of the lanes alive (most blocks move their alive lanes together).
 P1_LAYOUTS = {
     "plain": {},
     "refraction": dict(support_refraction=True),
@@ -562,7 +563,7 @@ P1_LAYOUTS = {
     "refraction + backface": dict(support_refraction=True,
                                   accurate_thickness=ThicknessMode.DEPTH_NORMALS),
 }
-P1_CASES = ("random", "s_max 16", "s_max 40", "ragged", "dead", "dither")
+P1_CASES = ("random", "s_max 16", "s_max 40", "ragged", "dead", "dither", "sparse")
 
 
 @pytest.fixture(scope="module")
@@ -598,6 +599,9 @@ def p1_args(march_case, layout, inside, pcase):
         lanes = [a.reshape((-1,) + a.shape[2:])[:-77] for a in lanes]  # flat lanes
     if pcase == "dead":
         lanes[6] = torch.zeros_like(lanes[6])
+    if pcase == "sparse":
+        g = torch.Generator().manual_seed(17)
+        lanes[6] = lanes[6] & (torch.rand(lanes[6].shape, generator=g) < 0.25).to(lanes[6].device)
     if pcase in ("dither", "layout"):
         lanes[3] = random_dither(lanes[3].numel(), lanes[3].device).reshape(lanes[3].shape)
     return (PTConfig(), s, s.variants(), gb, cam, *lanes)
@@ -622,7 +626,7 @@ def check_p1(args, hits: float):
 @pytest.mark.parametrize("pcase", P1_CASES)
 def test_ray_march_kernel_bit_exact(march_case, pcase):
     args = p1_args(march_case, "plain", 0, pcase)
-    check_p1(args, 0.0 if pcase == "dead" else 0.2)
+    check_p1(args, {"dead": 0.0, "sparse": 0.05}.get(pcase, 0.2))
 
 
 @pytest.mark.parametrize("inside", [0, 1, 2])
@@ -633,8 +637,8 @@ def test_ray_march_layouts_bit_exact(march_case, layout, inside):
         assert ref.is_back_hit.any()
 
 
-# P1's blocks list the alive lanes of their span and march them in rounds
-# of 32: the cases of that control flow, each bit for bit against
+# P1's blocks move their alive lanes to their first threads where that
+# frees a warp: the cases of that control flow, each bit for bit against
 # ray_march_ref. Lanes are the glass box's random rays, flat and indexed
 # (an index may repeat), in the plain layout.
 def p1_lanes(march_case, idx, alive=None, s_max=24):
@@ -681,9 +685,8 @@ def test_ray_march_past_a_span_bit_exact(march_case, times):
     span = p1_span()
     assert span > 0 and span % 128 == 0
     n = span + 1 if times == "one more" else 3 * span + span // 2 + 7
-    dev = march_case[2]["pos"].device
-    check_p1(p1_lanes(march_case, torch.arange(n, device=dev) % march_case[2]["pos"][..., 0].numel()),
-             0.2)
+    x = march_case[2]["pos"]
+    check_p1(p1_lanes(march_case, torch.arange(n, device=x.device) % x[..., 0].numel()), 0.2)
 
 
 def test_ray_march_lone_long_lane_bit_exact(march_case):

@@ -85,10 +85,8 @@ struct Args {
   float small_step, medium_step, thickness, th_inc, step_growth, texel_x, texel_y;
 };
 
-// floorf then the conversion, in one rounding-down conversion: t is in
-// (0, 1) here (the screen test comes first), so the two agree.
 __device__ __forceinline__ int pixel_index(float t, int size) {
-  const int i = __float2int_rd(t * static_cast<float>(size));
+  const int i = static_cast<int>(floorf(t * static_cast<float>(size)));
   return min(max(i, 0), size - 1);
 }
 
