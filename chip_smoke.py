@@ -23,13 +23,20 @@ Phases (any failure exits non-zero and prints no result line):
      per-lane dither), on the glass box with refraction + DepthNormals
      and insideObject 0, 1 and 2, and at 256^2 in the refraction-only
      and backface-only layouts; K1, K4 and K6 with a random per-lane
-     dither at 1080p, bit for bit;
+     dither at 1080p, bit for bit; then A1 (À-Trous) and T1 (temporal
+     reprojection) against their plain versions, bit for bit, at 256^2
+     and 1080p on the classroom (noisy input, counts 0 / 1 / 5 / 8 / 9,
+     a moved camera's history with an emission change and an off-screen
+     band), A1 with row_offset 0 and 17 and on the glass box with
+     refraction, T1 with f32 and bf16 history and on the glass box;
   4. one whole frame of each of the headline, dual, home, parity
      headline, parity dual, spp-2 dithered headline and oct-normals +
      forward-only headline, with the kernels against the plain path; the
      home march against the non-home march at 1080p bounce 0 with 16
      rounds; the headline and dual frames with pallas_extract against
-     the default frames, bit for bit;
+     the default frames, bit for bit; two real-time frames of (g) and (h)
+     (below) through the kernels against the whole plain path, and the
+     adaptive-spp trace alone, bit for bit, at 256^2 and 1080p;
   5. the main paths, each with the launch counts set to 0 just before
      and read just after it: Renderer.render_frame, OFFLINE, 1920x1080,
      (a) the headline BoxScene with PTConfig.boxscene_headline(), (b)
@@ -38,9 +45,14 @@ Phases (any failure exits non-zero and prints no result line):
      the headline with pallas_extract (the unfused rounds), (e) the
      parity headline (kernel "xla": P1, 4 launches a frame), (f) the
      parity dual frame (3), and the headline at 2 samples a pixel with
-     step dithering (hiz: 8 K1 and 8 R1 launches a frame); 1 warm-up +
-     timed frames; each followed by a torch.profiler report of two more
-     frames (a report, never a gate);
+     step dithering (hiz: 8 K1 and 8 R1 launches a frame); then the
+     real-time cells of scripts/bench_suite.py:169-213, the classroom at
+     1920x1080, 2 bounces, spp 1 adaptive to 4, hiz: (g) TEMPORAL with
+     a static camera (8 K1, 8 R1 and 1 T1 launches a frame) and (h)
+     SPATIAL_TEMPORAL at MEDIUM with the camera alternating between two
+     positions (the same and 3 A1); 1 warm-up + timed frames; each
+     followed by a torch.profiler report of two more frames (a report,
+     never a gate);
   6. a report, whose gates are the diagnostic march's launch counts,
      K3's and P1's bit identity and the golden regression: the
      diagnostic march (K2 + K3, counts set to 0 before and read after)
@@ -71,6 +83,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -129,6 +142,14 @@ KERNELS = {
         source="unitysspathtracingurp_tpu_torch/csrc/ray_march.cu",
         replaces="unitysspathtracingurp_tpu/ops/pathtrace.py:79",
     ),
+    "atrous": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/atrous.cu",
+        replaces="unitysspathtracingurp_tpu/ops/atrous.py:32",
+    ),
+    "temporal": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/temporal.cu",
+        replaces="unitysspathtracingurp_tpu/ops/temporal.py:165",
+    ),
 }
 # The kernels each path launches (the others must stay at 0 there).
 PATHS = {
@@ -140,6 +161,8 @@ PATHS = {
     "parity": ("ray_march",),
     "parity_dual": ("ray_march",),
     "dither2": ("schedule_pack", "resolve_rounds"),
+    "realtime": ("schedule_pack", "resolve_rounds", "temporal"),
+    "spatial_temporal": ("schedule_pack", "resolve_rounds", "atrous", "temporal"),
 }
 # The G-buffer P1's bound counts: 4 B a texel of each depth image in use.
 P1_LANE_IN = 12 + 12 + 12 + 4 + 4 + 4  # pos, dir, view dir, inside, dither, large step
@@ -1539,6 +1562,327 @@ def check_extract_frame(h, w, dev, path: str):
     gate(equal, f"extract frame bit-equal to the default frame ({path})")
 
 
+# ---------------------------------------------------------------- the real-time path
+
+# f32 operations of one pixel that A1 filters: 9 taps x (4 weights of
+# ~13 operations, an exp each counted as one, their product, the three
+# weighted sums and the weight sum), the gate and the final blend.
+A1_OPS = 560
+# f32 operations of one pixel of T1, both branches: the reprojection,
+# rejection, three bilinear reads, the box, the virtual uv, the clip and
+# the accumulation speed (log, exp2 and two pow counted as one each).
+T1_OPS = 400
+
+
+@functools.lru_cache(maxsize=None)
+def classroom(h, w, dev, jitter=0.0, prev_jitter=None):
+    """The classroom G-buffer and camera at ``jitter``; with
+    ``prev_jitter`` its motion vectors to that camera. Built once per
+    size and camera pair (the host rasterizes it)."""
+    from unitysspathtracingurp_tpu_torch.models import fixtures, scene
+
+    cam = fixtures.classroom_camera(h, w, jitter=jitter, device=dev)
+    prev = (None if prev_jitter is None
+            else fixtures.classroom_camera(h, w, jitter=prev_jitter, device=dev))
+    gb = fixtures.rasterize_gbuffers(scene.build_classroom_scene(), cam, h, w, device=dev,
+                                     prev_cam=prev)
+    return gb, cam
+
+
+def realtime_frames(path: str, h, w, dev):
+    """The (G-buffer, camera) frames a real-time path cycles through:
+    (g) "realtime" the static camera (motion exactly 0); (h)
+    "spatial_temporal" the camera alternating between jitter 0 and 0.05,
+    each G-buffer with its motion to the other."""
+    import torch
+
+    gb0, cam0 = classroom(h, w, dev, 0.0, 0.05)
+    if path == "realtime":
+        return [(dataclasses.replace(gb0, motion=torch.zeros_like(gb0.motion)), cam0)]
+    return [(gb0, cam0), classroom(h, w, dev, 0.05, 0.0)]
+
+
+def realtime_settings(path: str):
+    """The classroom cell (scripts/bench_suite.py:169-213): 2 bounces, spp
+    1 (adaptive to 4), 24 steps, no dither; TEMPORAL on (g),
+    SPATIAL_TEMPORAL at MEDIUM (3 À-Trous passes) on (h)."""
+    from unitysspathtracingurp_tpu_torch.config import DenoiserType, PTSettings
+
+    mode = DenoiserType.TEMPORAL if path == "realtime" else DenoiserType.SPATIAL_TEMPORAL
+    return PTSettings(maximum_depth=2, samples_per_pixel=1, maximum_steps=24,
+                      denoiser=mode, dithering=False)
+
+
+def realtime_renderer(path: str, h, w, dev):
+    from unitysspathtracingurp_tpu_torch.models.renderer import Renderer
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+
+    return Renderer(realtime_settings(path), h, w,
+                    probes=ProbeSet(probe0=constant_probe(PROBE, device=dev)), kernel="hiz",
+                    device=dev)
+
+
+@contextlib.contextmanager
+def plain_realtime():
+    """Route the real-time frame through the plain PyTorch versions: the
+    hiz march's (plain_kernels), A1's and T1's."""
+    from unitysspathtracingurp_tpu_torch.models import renderer
+    from unitysspathtracingurp_tpu_torch.ops import atrous, temporal
+
+    saved = renderer.atrous_filter, renderer.temporal_reproject
+    renderer.atrous_filter = atrous.atrous_filter_ref
+    renderer.temporal_reproject = temporal.temporal_reproject_ref
+    try:
+        with plain_kernels():
+            yield
+    finally:
+        renderer.atrous_filter, renderer.temporal_reproject = saved
+
+
+def rt_inputs(h, w, dev, hist_dtype, glass=False):
+    """A1 / T1 inputs: the classroom G-buffer with motion to the moved
+    camera (or the glass box with a uniform motion), a noisy color,
+    counts 0 / 1 / 5 / 8 / 9, and a history from the moved camera with a
+    noisy color, its depth and its emission brightened in a block (an
+    emission change); the left 1/16 of the motion is pushed off screen
+    and the top 1/16 of the rows is made sky (the classroom has none)."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops.temporal import TemporalState
+
+    g = torch.Generator().manual_seed(21)
+    if glass:
+        gb, cam = boxscene(h, w, dev, glass=True)
+        prev, pgb = cam, gb
+        gb = dataclasses.replace(gb, motion=torch.tensor([0.003, -0.002]).expand(h, w, 2)
+                                 .contiguous().to(dev))
+    else:
+        gb, cam = classroom(h, w, dev, 0.0, 0.05)
+        pgb, prev = classroom(h, w, dev, 0.05, 0.0)
+        motion, depth = gb.motion.clone(), gb.depth.clone()
+        motion[:, : max(w // 16, 1), 0] += 1.5
+        depth[h - max(h // 16, 1):] = 0.0
+        gb = dataclasses.replace(gb, motion=motion, depth=depth)
+    color = (torch.rand(h, w, 3, generator=g) * 2.0).to(dev)
+    counts = torch.tensor([0.0, 1.0, 5.0, 8.0, 9.0])[torch.randint(0, 5, (h, w), generator=g)]
+    emis = pgb.emission.clone()
+    emis[h // 4:h // 2, w // 4:w // 2] += 2.0
+    state = TemporalState(
+        history_color=(torch.rand(h, w, 3, generator=g) * 2.0).to(dev, hist_dtype),
+        history_sample=counts.to(dev), history_depth=pgb.layer1_depth(),
+        history_emission=emis.to(hist_dtype), prev_inv_view_proj=prev.inv_view_proj,
+        prev_view_proj=prev.view_proj, prev_camera_position=prev.position)
+    return gb, cam, color, state
+
+
+def a1_bound(gb, counts, cfg, refr: bool) -> dict:
+    """A1's least time on this run's inputs: every pixel reads its color,
+    count and depth and writes its color; the emission, normal and albedo
+    images (and the transparent type, normal and albedo under refraction)
+    are read once where some pixel filters; each filtered pixel costs
+    A1_OPS."""
+    from unitysspathtracingurp_tpu_torch.ops.atrous import blur_amount
+
+    n = gb.height * gb.width
+    filtered = float(((gb.layer1_depth() != 0.0) & (blur_amount(counts, cfg) != 0.0)).sum())
+    guides = (36 + (32 if refr else 0)) * n if filtered else 0
+    return bound(n * (12 + 4 + 4 + 12) + guides, filtered * A1_OPS)
+
+
+def t1_bound(gb, state, refr: bool) -> dict:
+    """T1's least time on this run's inputs: each input image read once
+    (history color and emission at their own width), color and count
+    written once, T1_OPS a pixel."""
+    n = gb.height * gb.width
+    hist = 2 * 3 * state.history_color.element_size()
+    per = 12 + 12 + 4 + 12 + 4 + (8 if gb.motion is not None else 0) + 4 + 4 + hist + 16
+    return bound(n * (per + (24 if refr else 0)) + 54 * 4, n * T1_OPS)
+
+
+def check_realtime_kernels(h, w, dev, timing: bool):
+    """Phase 3: A1 and T1 against their plain versions, bit for bit, on
+    the classroom (noisy input, mixed counts, a moved camera's history),
+    A1 with row_offset 0 and 17 and on the glass box with refraction, T1
+    with f32 and bf16 history and on the glass box with refraction."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.camera import pixel_spread_angle_tangent
+    from unitysspathtracingurp_tpu_torch.config import PTConfig, PTSettings
+    from unitysspathtracingurp_tpu_torch.ops import atrous, temporal
+
+    cfg = PTConfig()
+    out = {"atrous": {"max_abs_err": 0.0}, "temporal": {"max_abs_err": 0.0}}
+    ti = PTSettings().temporal_intensity
+    spread = pixel_spread_angle_tangent(float(torch.pi / 3), w, h)
+    for label, glass, row_offset in (("classroom", False, 0), ("classroom", False, 17),
+                                     ("glass box, refraction", True, 0)):
+        gb, _, color, state = rt_inputs(h, w, dev, torch.float32, glass)
+        args = (color, gb, gb.emission, state.history_sample, cfg, glass, row_offset)
+        got, ref = atrous.atrous_filter(*args), atrous.atrous_filter_ref(*args)
+        torch.cuda.synchronize()
+        equal = bits_equal(got, ref)
+        err = (got - ref).abs().max().item()
+        out["atrous"]["max_abs_err"] = max(out["atrous"]["max_abs_err"], err)
+        moved = (ref != color).any(-1).float().mean().item()
+        print(f"phase 3 A1 atrous {w}x{h} {label}, row_offset {row_offset}: output equal "
+              f"{equal}, max abs err {err:.3e}, pixels filtered {moved:.4f}")
+        gate(equal, f"A1 bit-exact against its plain version ({label}, {row_offset})")
+        gate(moved > 0.3, f"A1 filters ({label})")
+    for label, glass, dt in (("classroom, f32 history", False, torch.float32),
+                             ("classroom, bf16 history", False, torch.bfloat16),
+                             ("glass box, refraction", True, torch.float32)):
+        gb, cam, color, state = rt_inputs(h, w, dev, dt, glass)
+        args = (color, gb, cam, state, gb.emission, cfg, ti, spread, glass)
+        got = temporal.temporal_reproject(*args)
+        dec = {}
+        ref = temporal.temporal_reproject_ref(*args, _decisions=dec)
+        torch.cuda.synchronize()
+        equal = bits_equal(got.color, ref.color) and bits_equal(got.sample_count,
+                                                                ref.sample_count)
+        err = max((got.color - ref.color).abs().max().item(),
+                  (got.sample_count - ref.sample_count).abs().max().item())
+        out["temporal"]["max_abs_err"] = max(out["temporal"]["max_abs_err"], err)
+        share = {k: v.float().mean().item() for k, v in dec.items()}
+        share["smooth"] = (dec["can_reproject"] & ~dec["use_rough"]).float().mean().item()
+        print(f"phase 3 T1 temporal {w}x{h} {label}: color and count equal {equal}, max abs "
+              f"err {err:.3e}; pixel shares " + ", ".join(f"{k} {v:.4f}" for k, v in share.items()))
+        gate(equal, f"T1 bit-exact against its plain version ({label})")
+        if not glass:
+            gate(all(share[k] > 0.0 for k in ("off_screen", "is_sky", "emission_rejected",
+                                               "rough_ok", "smooth")),
+                 f"T1 inputs reach every branch ({label})")
+    if timing:
+        gb, cam, color, state = rt_inputs(h, w, dev, torch.float32)
+        a_args = (color, gb, gb.emission, state.history_sample, cfg)
+        t_args = (color, gb, cam, state, gb.emission, cfg, ti, spread)
+        out["atrous"].update(a1_bound(gb, state.history_sample, cfg, False))
+        out["temporal"].update(t1_bound(gb, state, False))
+        out["atrous"]["ms"] = cuda_ms(lambda: atrous.atrous_filter(*a_args), 20)
+        out["atrous"]["plain_ms"] = cuda_ms(lambda: atrous.atrous_filter_ref(*a_args), 3)
+        out["temporal"]["ms"] = cuda_ms(lambda: temporal.temporal_reproject(*t_args), 20)
+        out["temporal"]["plain_ms"] = cuda_ms(lambda: temporal.temporal_reproject_ref(*t_args), 3)
+        for name, tag in (("atrous", "A1"), ("temporal", "T1")):
+            o = out[name]
+            print(f"phase 3 {tag} {w}x{h}: {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms "
+                  f"({o['bound_by']}; share {o['bound_ms'] / o['ms']:.3f}), plain PyTorch "
+                  f"{o['plain_ms']:.4f} ms, library none")
+    return out
+
+
+def check_realtime_frame(h, w, dev, path: str, frames=2):
+    """Phase 4: ``frames`` real-time frames through the kernels against the
+    whole plain path (each renderer with its own history), bit for bit."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.utils.metrics import relative_rmse
+
+    cycle = realtime_frames(path, h, w, dev)
+    fast, plain = realtime_renderer(path, h, w, dev), realtime_renderer(path, h, w, dev)
+    for i in range(frames):
+        gb, cam = cycle[i % len(cycle)]
+        a = fast.render_frame(gb, cam)
+        with plain_realtime():
+            b = plain.render_frame(gb, cam)
+        torch.cuda.synchronize()
+        equal = (bits_equal(a, b) and bits_equal(fast.temporal_state.history_sample,
+                                                 plain.temporal_state.history_sample))
+        rel = relative_rmse(a.cpu().numpy(), b.cpu().numpy())
+        print(f"phase 4 {PATH_NAMES[path]} frame {i} {w}x{h}: image and counts bit-equal to "
+              f"the plain path {equal}, pooled relative RMSE {rel:.3e}")
+        gate(bool(torch.isfinite(a).all()), f"{path} frame has non-finite values")
+        gate(equal and rel == 0.0, f"{path} frame {i} bit-equal to the plain path ({w}x{h})")
+
+
+def check_adaptive_trace(h, w, dev):
+    """Phase 4: the adaptive-spp trace alone (history counts 0 / 1 / 3),
+    kernels against the plain path, bit for bit."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import PTConfig
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
+
+    gb, cam = classroom(h, w, dev, 0.0, 0.05)
+    s = realtime_settings("realtime")
+    g = torch.Generator().manual_seed(8)
+    hist = torch.tensor([0.0, 1.0, 3.0])[torch.randint(0, 3, (h, w), generator=g)].to(dev)
+    probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+    frames = []
+    for plain in (False, True):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            frames.append(trace_frame_hiz(gb, cam, probes, s, PTConfig(), s.variants(), 99,
+                                          history_sample=hist))
+    torch.cuda.synchronize()
+    boosted = ((gb.smoothness > 0.5) | (hist == 1.0)).float().mean().item()
+    equal = bits_equal(frames[0], frames[1])
+    print(f"phase 4 adaptive-spp trace {w}x{h} (history 0 / 1 / 3, {boosted:.4f} of the pixels "
+          f"on 4 samples): bit-equal to the plain path {equal}")
+    gate(equal, f"adaptive-spp trace bit-equal to the plain path ({w}x{h})")
+
+
+def realtime_main_path(dev, card, path: str):
+    """Phase 5: Renderer.render_frame at 1080p, TEMPORAL on (g) or
+    SPATIAL_TEMPORAL on (h); the launch counts set to 0 just before and
+    read just after. Each frame marches max(ray_count_low_sample, spp)
+    samples x 2 bounces (K1 and R1 each), runs À-Trous 2q + 1 times on
+    (h) and T1 once."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
+    from unitysspathtracingurp_tpu_torch.utils.metrics import mrays_per_sec
+
+    cycle = realtime_frames(path, H_FULL, W_FULL, dev)
+    r = realtime_renderer(path, H_FULL, W_FULL, dev)
+    s, cfg = r.settings, r.cfg
+    marches = max(cfg.ray_count_low_sample, s.samples_per_pixel) * s.maximum_depth
+    expect = dict(schedule_pack=marches, resolve_rounds=marches, atrous=r.spatial_passes,
+                  temporal=1)
+    gate(set(k for k, v in expect.items() if v) == set(PATHS[path]), f"{path} kernel set")
+    step = {"i": 0}
+
+    def frame():
+        gb, cam = cycle[step["i"] % len(cycle)]
+        step["i"] += 1
+        return r.render_frame(gb, cam)
+
+    LAUNCHES.clear()
+    per_frame = []
+    image = frame()  # warm-up: builds the depth tiles and the history
+    torch.cuda.synchronize()
+    per_frame.append(dict(LAUNCHES))
+    times = []
+    for _ in range(TIMED_FRAMES):
+        t0 = time.perf_counter()
+        image = frame()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_frame.append(dict(LAUNCHES))
+    launches = dict(LAUNCHES)
+    dt = sum(times) / TIMED_FRAMES
+    for i, counts in enumerate(per_frame, start=1):
+        gate(all(counts.get(name, 0) == expect.get(name, 0) * i for name in KERNELS),
+             f"launch counts after frame {i}: {counts}")
+    hs = r.temporal_state.history_sample
+    gate(tuple(image.shape) == (H_FULL, W_FULL, 3), "image shape")
+    gate(bool(torch.isfinite(image).all()), "real-time image not finite")
+    gate(float(image.mean()) > 0.0, "real-time image is black")
+    gate(float(hs.max()) <= cfg.max_accum_frame_num and float(hs.max()) > 1.0,
+         f"history counts {float(hs.min())}..{float(hs.max())}")
+    gb0 = cycle[0][0]
+    sky = float((gb0.layer1_depth() == 0.0).float().mean())
+    boosted = float(((gb0.smoothness > 0.5) | (hs == 1.0)).float().mean())
+    spp = 1.0 + (cfg.ray_count_low_sample - 1) * boosted
+    rate = mrays_per_sec(H_FULL, W_FULL, spp, s.maximum_depth, dt, sky)
+    name = PATH_NAMES[path]
+    print(f"phase 5 {name} main path Renderer.render_frame {s.denoiser.name} {W_FULL}x{H_FULL} "
+          f"{s.maximum_depth} bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
+          f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s at the {spp:.3f} active samples a "
+          f"pixel of the last history, history counts mean {float(hs.mean()):.3f}, "
+          f"launches {launches} [{card}]")
+    profile_frames(frame, card, f"{name} main-path")
+    return launches
+
+
 PATH_NAMES = {
     "dual": "dual (glass, refraction + DepthNormals)",
     "home": "home (headline + home prefix, hiz_home_round_cap 0.4)",
@@ -1546,6 +1890,8 @@ PATH_NAMES = {
     "parity": "parity headline (kernel xla: P1)",
     "parity_dual": "parity dual (kernel xla: P1, glass, refraction + DepthNormals)",
     "dither2": "headline, spp 2, step dithering (hiz)",
+    "realtime": "(g) classroom_realtime (TEMPORAL, static camera)",
+    "spatial_temporal": "(h) classroom_spatial_temporal (SPATIAL_TEMPORAL, moving camera)",
 }
 
 
@@ -1641,6 +1987,15 @@ def profile_frames(frame, card, name, frames=2):
     for t, c, key in sorted(rows, reverse=True)[:10]:
         print(f"profile:   {t / frames / 1e3:8.3f} ms/frame {100.0 * t / busy:5.1f}% "
               f"x{c // frames:<5d} {key[:90]}")
+    # The hand kernels' own rows, wherever they rank: every __global__ of
+    # csrc/*.cu is a *_kernel in a top-level anonymous namespace.
+    hand = [(m.group(1), c, t) for t, c, key in sorted(rows, reverse=True)
+            if (m := re.match(r"void \(anonymous namespace\)::(\w+_kernel\b[^(]*)", key))]
+    if hand:
+        t_hand = sum(t for _, _, t in hand)
+        print(f"profile:   hand kernels {t_hand / frames / 1e3:.3f} ms/frame "
+              f"({100.0 * t_hand / busy:.1f}%): " + ", ".join(
+                  f"{name} x{c // frames} {t / frames / 1e3:.3f}" for name, c, t in hand))
 
 
 def main() -> int:
@@ -1687,6 +2042,8 @@ def main() -> int:
     for h, w in ((256, 256), (H_FULL, W_FULL)):
         stats.update(check_march_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     check_dither_kernels(dev)
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        stats.update(check_realtime_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     mark("phase 3")
     for path in ("headline", "dual", "home", "parity", "parity_dual", "dither2", "octfwd"):
         for h, w in ((256, 256), (H_FULL, W_FULL)):
@@ -1695,10 +2052,18 @@ def main() -> int:
     for path in ("headline", "dual"):
         for h, w in ((256, 256), (H_FULL, W_FULL)):
             check_extract_frame(h, w, dev, path)
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        for path in ("realtime", "spatial_temporal"):
+            check_realtime_frame(h, w, dev, path)
+        check_adaptive_trace(h, w, dev)
     mark("phase 4")
     launches = {}
     for path in ("headline", "dual", "home", "extract", "parity", "parity_dual", "dither2"):
         counts = main_path(dev, card, path)
+        for name in PATHS[path]:
+            launches.setdefault(name, counts.get(name, 0))
+    for path in ("realtime", "spatial_temporal"):
+        counts = realtime_main_path(dev, card, path)
         for name in PATHS[path]:
             launches.setdefault(name, counts.get(name, 0))
     mark("phase 5")
@@ -1717,7 +2082,7 @@ def main() -> int:
         for name, meta in KERNELS.items()
     ]
     for row in rows:
-        print(f"kernel {row['name']} at the 1080p bounce-0 shape: {row['ms']:.4f} ms, "
+        print(f"kernel {row['name']} at its 1080p shape: {row['ms']:.4f} ms, "
               f"plain PyTorch {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}), {row['launches']} launches on its main path [{card}]")
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,7 @@
 """The CUDA kernels (K1, R1, K4, R1's dual mode, K6, K2, K3, R1's
-state-in form, K5, K7 and P1, the parity march) against their plain
-PyTorch versions, and the unfused resolve rounds (K5 + K7) against R1,
-on the card.
+state-in form, K5, K7, P1 (the parity march), A1 (À-Trous) and T1
+(temporal reprojection)) against their plain PyTorch versions, and the
+unfused resolve rounds (K5 + K7) against R1, on the card.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device. On a
 machine with an NVIDIA GPU (no JAX needed):
@@ -729,3 +729,126 @@ def test_ray_march_two_streams_bit_exact(march_case):
         for a, b in zip(g, r):
             assert torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)) \
                 if a.dtype == torch.float32 else torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- A1 and T1
+
+RT_SIZES = ((1, 1), (37, 53), (256, 256))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _rt_case(h, w, glass=False, hist_dtype=torch.float32, prev_jitter=0.05, seed=3):
+    """A real-time frame's inputs on the card: the classroom (or the glass
+    box) G-buffer with motion to a moved camera, a noisy color, counts
+    0 / 1 / 3 / 5 / 8 / 9 and a history from the moved camera."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from unitysspathtracingurp_tpu_torch.ops.temporal import TemporalState
+
+    dev = torch.device("cuda", 0)
+    sc = (scene.build_box_scene(with_glass=True, with_mirror=False) if glass
+          else scene.build_classroom_scene())
+    make = fixtures.box_scene_camera if glass else fixtures.classroom_camera
+    cam, prev = make(h, w, device=dev), make(h, w, jitter=prev_jitter, device=dev)
+    gb = fixtures.rasterize_gbuffers(sc, cam, h, w, device=dev, prev_cam=prev,
+                                     with_backface=glass)
+    pgb = fixtures.rasterize_gbuffers(sc, prev, h, w, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    color = (torch.rand(h, w, 3, generator=g) * 2.0).to(dev)
+    counts = torch.tensor([0.0, 1.0, 3.0, 5.0, 8.0, 9.0])[
+        torch.randint(0, 6, (h, w), generator=g)].to(dev)
+    state = TemporalState(
+        history_color=(torch.rand(h, w, 3, generator=g) * 2.0).to(dev, hist_dtype),
+        history_sample=counts, history_depth=pgb.layer1_depth(),
+        history_emission=pgb.emission.to(hist_dtype), prev_inv_view_proj=prev.inv_view_proj,
+        prev_view_proj=prev.view_proj, prev_camera_position=prev.position)
+    return gb, cam, color, state
+
+
+def check_atrous(gb, color, counts, refr=False, row_offset=0):
+    from unitysspathtracingurp_tpu_torch.ops import atrous
+
+    before = LAUNCHES["atrous"]
+    got = atrous.atrous_filter(color, gb, gb.emission, counts, PTConfig(), refr, row_offset)
+    ref = atrous.atrous_filter_ref(color, gb, gb.emission, counts, PTConfig(), refr, row_offset)
+    torch.cuda.synchronize()
+    assert LAUNCHES["atrous"] == before + 1
+    assert torch.equal(_bits(got), _bits(ref))
+    return got
+
+
+@pytest.mark.parametrize("acase", ["plain", "row offset 17", "refraction", "all sky"])
+@pytest.mark.parametrize("size", RT_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_atrous_kernel_bit_exact(size, acase):
+    gb, _, color, state = _rt_case(*size, glass=acase == "refraction")
+    if acase == "all sky":
+        gb = dataclasses.replace(gb, depth=torch.zeros_like(gb.depth))
+    check_atrous(gb, color, state.history_sample, refr=acase == "refraction",
+                 row_offset=17 if acase == "row offset 17" else 0)
+
+
+def check_temporal(gb, cam, color, state, refr=False):
+    from unitysspathtracingurp_tpu_torch.ops import temporal
+
+    before = LAUNCHES["temporal"]
+    args = (color, gb, cam, state, gb.emission, PTConfig(), 0.97, 0.0012, refr)
+    got = temporal.temporal_reproject(*args)
+    ref = temporal.temporal_reproject_ref(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["temporal"] == before + 1
+    assert torch.equal(_bits(got.color), _bits(ref.color))
+    assert torch.equal(_bits(got.sample_count), _bits(ref.sample_count))
+    return got
+
+
+TEMPORAL_CASES = ("f32", "bf16", "refraction", "static", "no motion", "off screen", "all sky")
+
+
+@pytest.mark.parametrize("tcase", TEMPORAL_CASES)
+@pytest.mark.parametrize("size", RT_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_temporal_kernel_bit_exact(size, tcase):
+    gb, cam, color, state = _rt_case(
+        *size, glass=tcase == "refraction",
+        hist_dtype=torch.bfloat16 if tcase == "bf16" else torch.float32,
+        prev_jitter=0.0 if tcase == "static" else 0.05)
+    if tcase == "no motion":
+        gb = dataclasses.replace(gb, motion=None)
+    if tcase == "off screen":
+        gb = dataclasses.replace(gb, motion=gb.motion + torch.tensor([1.5, -2.0], device=color.device))
+    if tcase == "all sky":
+        gb = dataclasses.replace(gb, depth=torch.zeros_like(gb.depth))
+    check_temporal(gb, cam, color, state, refr=tcase == "refraction")
+
+
+def test_realtime_kernels_back_to_back_bit_exact():
+    """A1 three times on its own output, then T1 twice, on one stream."""
+    gb, cam, color, state = _rt_case(256, 256)
+    for _ in range(3):
+        color = check_atrous(gb, color, state.history_sample)
+    first = check_temporal(gb, cam, color, state)
+    check_temporal(gb, cam, first.color, state)
+
+
+def test_temporal_two_streams_bit_exact():
+    """T1 on two streams at once with different cameras and histories:
+    the camera array is per call, so neither sees the other's."""
+    from unitysspathtracingurp_tpu_torch.ops import temporal
+
+    calls = []
+    for jitter, seed in ((0.05, 3), (-0.2, 4)):
+        gb, cam, color, state = _rt_case(256, 256, prev_jitter=jitter, seed=seed)
+        calls.append((color, gb, cam, state, gb.emission, PTConfig(), 0.97, 0.0012))
+    refs = [temporal.temporal_reproject_ref(*c) for c in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for s, c in zip(streams, calls):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            got.append(temporal.temporal_reproject(*c))
+    torch.cuda.synchronize()
+    for g, r in zip(got, refs):
+        assert torch.equal(_bits(g.color), _bits(r.color))
+        assert torch.equal(_bits(g.sample_count), _bits(r.sample_count))

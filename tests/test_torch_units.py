@@ -55,6 +55,9 @@ from unitysspathtracingurp_tpu_torch.ops import rng as trng
 from unitysspathtracingurp_tpu_torch.ops.fused_schedule import schedule_pack, schedule_pack_dual
 from unitysspathtracingurp_tpu_torch.ops.pathtrace import compact_indices
 from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import _link, resolve_rounds, resolve_rounds_dual
+from unitysspathtracingurp_tpu_torch.ops import temporal as ttemporal
+from unitysspathtracingurp_tpu_torch.ops.atrous import atrous_filter
+from unitysspathtracingurp_tpu_torch.ops.temporal import temporal_reproject
 from unitysspathtracingurp_tpu_torch.utils import image as timage
 
 torch.set_num_threads(1)
@@ -126,15 +129,19 @@ def test_settings_validate_ranges(field, value):
 
 @pytest.mark.parametrize("cfg_kw,settings_kw", [
     ({"hiz_home_prefix": True}, {"noise_method": tconfig.NoiseMethod.SOBOL_OWEN}),
-    ({"hiz_round_cap": 0.4}, {"denoiser": tconfig.DenoiserType.SPATIAL_TEMPORAL}),
+    ({"hiz_round_cap": 0.4}, {"denoiser": tconfig.DenoiserType.SPATIAL_TEMPORAL,
+                              "noise_method": tconfig.NoiseMethod.SOBOL_OWEN}),
     ({}, {"gbuffer_normals_oct": True, "noise_method": tconfig.NoiseMethod.BLUE_NOISE}),
     ({}, {"noise_method": tconfig.NoiseMethod.BLUE_NOISE}),
-    ({}, {"denoiser": tconfig.DenoiserType.TEMPORAL}),
-    ({}, {"ignore_forward_objects": True, "denoiser": tconfig.DenoiserType.TEMPORAL}),
+    ({}, {"denoiser": tconfig.DenoiserType.TEMPORAL,
+          "noise_method": tconfig.NoiseMethod.BLUE_NOISE}),
+    ({}, {"ignore_forward_objects": True, "denoiser": tconfig.DenoiserType.TEMPORAL,
+          "noise_method": tconfig.NoiseMethod.SOBOL_OWEN}),
 ])
 def test_unported_knobs_raise(cfg_kw, settings_kw):
     """Unported settings raise, also beside the ported resolve knobs and
-    beside ported variants (oct normals, forward-only objects)."""
+    beside ported variants (oct normals, forward-only objects, the
+    real-time modes)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tconfig.PTSettings(**settings_kw).variants().check_supported()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -408,7 +415,26 @@ _KERNEL_CALLS = {
         _meta(16, 8), _meta(16, 8), _meta(16, 8), _meta(16, 8), _meta(8, dt=_I),
         _meta(8, 3), _meta(8, 3), _meta(8, dt=_B), _meta(8, dt=_I), _meta(8, dt=_B),
         _meta(6, 128, dt=_I), _meta(18)),
+    "atrous": lambda: atrous_filter(
+        _meta(4, 4, 3), _meta_gbuffers(), _meta(4, 4, 3), _meta(4, 4), tconfig.PTConfig()),
+    "temporal": lambda: temporal_reproject(
+        _meta(4, 4, 3), _meta_gbuffers(), _meta_camera(),
+        ttemporal.TemporalState.create(4, 4, _meta_camera(), device="meta"), _meta(4, 4, 3),
+        tconfig.PTConfig(), 0.9, 0.001),
 }
+
+
+def _meta_gbuffers():
+    return tgbuffer.GBuffers(
+        albedo=_meta(4, 4, 3), material_flags=_meta(4, 4, dt=torch.int64),
+        gbuffer1=_meta(4, 4, 3), normal=_meta(4, 4, 3), smoothness=_meta(4, 4),
+        emission=_meta(4, 4, 3), depth=_meta(4, 4))
+
+
+def _meta_camera():
+    return tcamera.Camera(position=_meta(3), view=_meta(4, 4), proj=_meta(4, 4),
+                          view_proj=_meta(4, 4), inv_view_proj=_meta(4, 4), near=_meta(1)[0],
+                          far=_meta(1)[0])
 
 
 @pytest.mark.parametrize("kernel", sorted(_KERNEL_CALLS))
@@ -535,12 +561,17 @@ def test_trace_frame_hiz_tuple_rounds(small_scene):
 
 
 def test_convert_state_and_unported_layers(box):
+    """The offline state and the motion layer carry over; a layer the
+    port's GBuffers does not have raises rather than drops."""
     jgb, _, _, _ = box
     state = convert.offline_state(np.ones((2, 3, 3), np.float32), np.int32(5), device="cpu")
     assert state.sample == 5 and state.accum.shape == (2, 3, 3)
     leaves = np_tree(jgb)
-    leaves["motion"] = np.zeros((40, 96, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    motion = RS.uniform(-0.1, 0.1, (40, 96, 2)).astype(np.float32)
+    leaves["motion"] = motion
+    np.testing.assert_array_equal(convert.gbuffers(leaves, device="cpu").motion.numpy(), motion)
+    leaves["velocity"] = motion
+    with pytest.raises(ValueError, match="velocity"):
         convert.gbuffers(leaves, device="cpu")
 
 

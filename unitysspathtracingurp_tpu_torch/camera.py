@@ -12,6 +12,7 @@ on the card) and move u/v by texels.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -129,8 +130,23 @@ def linear_eye_depth(raw_depth, near, far):
 
 
 def pixel_uv(height: int, width: int, device):
-    """Per-pixel uv grid (H, W, 2); row 0 = bottom of the image."""
-    v = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
-    u = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
-    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    """Per-pixel uv grid (H, W, 2); row 0 = bottom of the image.
+
+    The divisors are tensors on ``device``: torch divides a CUDA tensor
+    by a Python number as a product with its f32 reciprocal, and a
+    tensor divisor keeps the IEEE quotient (x + 0.5) / n that the CPU,
+    the JAX package and kernel T1 compute."""
+    f32 = torch.float32
+
+    def axis(n):
+        i = torch.arange(n, dtype=f32, device=device) + 0.5
+        return i / torch.full_like(i, float(n))
+
+    vv, uu = torch.meshgrid(axis(height), axis(width), indexing="ij")
     return torch.stack([uu, vv], dim=-1)
+
+
+def pixel_spread_angle_tangent(fov_y: float, width: int, height: int) -> float:
+    """_PixelSpreadAngleTangent = tan(fov / 2) * 2 / min(w, h)
+    (ScreenSpacePathTracingAccumulation.cs:880-896)."""
+    return math.tan(fov_y / 2.0) * 2.0 / min(width, height)

@@ -125,10 +125,6 @@ class PTVariants:
             raise NotImplementedError(
                 "blue-noise / Sobol-Owen samplers: ROADMAP Queue 1 item 11"
             )
-        if self.temporal_accumulation:
-            raise NotImplementedError(
-                "temporal accumulation: ROADMAP Queue 1 item 10"
-            )
         return self
 
 
@@ -169,6 +165,13 @@ class PTSettings:
         if self.maximum_intensity < 0.1:
             raise ValueError("maximum_intensity must be >= 0.1")
         return self
+
+    @property
+    def temporal_intensity(self) -> float:
+        """_TemporalIntensity = lerp(0.8, 0.97, accum_factor * 2 - 1)
+        (cs:394-396)."""
+        t = self.accum_factor * 2.0 - 1.0
+        return 0.8 + (0.97 - 0.8) * t
 
     def variants(self) -> PTVariants:
         return PTVariants(

@@ -34,14 +34,12 @@ def _t(a, device, dtype=None):
 
 def gbuffers(leaves: dict, device="cuda") -> GBuffers:
     """``leaves``: field name -> numpy array (None for absent layers),
-    the transparent and backface layers included. Layers the port does
-    not decode yet (motion vectors) raise rather than drop."""
+    the transparent, backface and motion layers included. A layer the
+    port's ``GBuffers`` does not have raises rather than drops."""
     names = {f.name for f in dataclasses.fields(GBuffers)}
     extra = sorted(k for k, v in leaves.items() if v is not None and k not in names)
     if extra:
-        raise NotImplementedError(
-            f"G-buffer layers {extra}: ROADMAP Queue 1 item 10 (motion vectors)"
-        )
+        raise ValueError(f"G-buffer layers the port does not have: {extra}")
     return GBuffers(**{name: _t(leaves.get(name), device) for name in names})
 
 

@@ -4,7 +4,8 @@
 Images are (H, W, C) or (H, W) tensors with row 0 at the bottom; depth
 holds raw reversed-Z device depth (0.0 = sky). The transparent and
 backface layers feed the refraction / backface variants; the motion
-layer belongs to the real-time modes (ROADMAP Queue 1 item 10).
+layer (uv - previous uv of each pixel's surface) feeds the temporal
+pass of the real-time modes.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ class GBuffers:
     t_surface_type: Optional[torch.Tensor] = None  # (H, W) int64
     t_normal: Optional[torch.Tensor] = None  # (H, W, 3)
     t_smoothness: Optional[torch.Tensor] = None  # (H, W)
+    motion: Optional[torch.Tensor] = None  # (H, W, 2) uv - previous uv
 
     @property
     def height(self) -> int:

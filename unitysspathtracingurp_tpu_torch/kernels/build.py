@@ -88,6 +88,16 @@ _SIGNATURES = {
     "sspt_ray_march": [P] * 13 + [I] * 6 + [F] * 7 + [P],
     # P1's span: the lanes one block compacts and marches.
     "sspt_ray_march_span": [],
+    # pointers: color, emission, normal, albedo, count, depth, t_type,
+    # t_normal, t_albedo (the last three null without refraction), out;
+    # ints h, w, row_offset, refr; floats max_n, inv_n; stream.
+    "sspt_atrous": [P] * 10 + [I] * 4 + [F] * 2 + [P],
+    # pointers: current, emission, depth, normal, smoothness, history
+    # count, depth, color, emission, t_type, t_normal, t_smoothness (null
+    # without refraction), motion (or null), cams, color out, count out;
+    # ints h, w, refr, bf16; floats max_n, intensity, spread, proj_eps,
+    # max_dist, max_tol, clamp_hi, rough_thr, curve, base_power; stream.
+    "sspt_temporal": [P] * 16 + [I] * 4 + [F] * 10 + [P],
 }
 
 

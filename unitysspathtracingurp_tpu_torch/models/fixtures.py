@@ -1,13 +1,13 @@
 """G-buffer fixtures: the host "rasterizer" for the analytic scenes.
 
 A copy of the parts of ``unitysspathtracingurp_tpu.models.fixtures``
-that the offline slices use (``rasterize_gbuffers`` for the opaque
-G-buffer + depth, the backface depth + normals and the transparent
-G-buffer + layer-1 depth; ``box_scene_camera``): the JAX package imports
-JAX, which the port's runtime does not have. Primary rays are cast in
-host numpy; the result is the port's ``GBuffers`` on ``device`` (the
-card unless the caller asks for the CPU). The motion-vector layer is
-ROADMAP Queue 1 item 10.
+that the port uses (``rasterize_gbuffers`` for the opaque G-buffer +
+depth, the backface depth + normals, the transparent G-buffer + layer-1
+depth and the motion vectors; the BoxScene, classroom, figure and plane
+cameras): the JAX package imports JAX, which the port's runtime does not
+have. Primary rays are cast in host numpy; the result is the port's
+``GBuffers`` on ``device`` (the card unless the caller asks for the
+CPU).
 """
 
 from __future__ import annotations
@@ -79,12 +79,15 @@ def _material_arrays(prims, idx, n_rays):
 
 
 def rasterize_gbuffers(scene: Scene, cam: Camera, height: int, width: int,
-                       device="cuda", with_backface: bool = False) -> GBuffers:
+                       device="cuda", with_backface: bool = False,
+                       prev_cam: Camera | None = None) -> GBuffers:
     """Cast primary rays and assemble the GBuffers: the opaque pass, the
     backface pass when ``with_backface`` (two-sided primitives only;
-    planes give the far sentinel, ref PathTracing.hlsl:119-130), and the
+    planes give the far sentinel, ref PathTracing.hlsl:119-130), the
     transparent pass + layer-1 depth when the scene has refractive
-    primitives."""
+    primitives, and with ``prev_cam`` the motion vectors: uv minus the
+    uv of the same world point under ``prev_cam`` (exact zeros for an
+    unmoved camera; sky pixels reproject the far plane)."""
     h, w = height, width
     vp = cam.view_proj.cpu().numpy()
     o, d = primary_rays(cam, h, w)
@@ -144,6 +147,17 @@ def rasterize_gbuffers(scene: Scene, cam: Camera, height: int, width: int,
         p1 = o + d * np.where(hit1, t1, 1.0)[..., None]
         raw1 = np.where(hit1, _np_world_to_ndc(vp, p1)[..., 2], 0.0)
         gb["depth_layer1"] = img(raw1.astype(np.float32))
+    if prev_cam is not None:
+        prev_vp = prev_cam.view_proj.cpu().numpy()
+        if np.array_equal(prev_vp, vp):
+            gb["motion"] = img(np.zeros((n_rays, 2), np.float32), 2)
+        else:
+            uv = _np_pixel_uv(h, w).reshape(-1, 2)
+            far = _np_world_from_uv_depth(cam.inv_view_proj.cpu().numpy(), uv,
+                                          np.full(n_rays, 1e-4, np.float32))
+            pts = np.where(hit[..., None], hit_p, far)
+            prev_uv = _np_world_to_ndc(prev_vp, pts)[..., :2]
+            gb["motion"] = img((uv - prev_uv).astype(np.float32), 2)
     return GBuffers(**gb)
 
 
@@ -159,3 +173,21 @@ def box_scene_camera(height: int, width: int, jitter: float = 0.0, device="cuda"
         far=100.0,
         device=device,
     )
+
+
+def classroom_camera(height: int, width: int, jitter: float = 0.0, device="cuda") -> Camera:
+    return make_camera(eye=[0.0 + jitter, 1.6, 4.2], target=[0.0, 1.2, -2.0],
+                       up=[0.0, 1.0, 0.0], fov_y=np.radians(60.0), aspect=width / height,
+                       near=0.1, far=100.0, device=device)
+
+
+def figure_camera(height: int, width: int, jitter: float = 0.0, device="cuda") -> Camera:
+    return make_camera(eye=[1.6 + jitter, 1.4, 3.0], target=[0.0, 1.2, 0.0],
+                       up=[0.0, 1.0, 0.0], fov_y=np.radians(45.0), aspect=width / height,
+                       near=0.1, far=100.0, device=device)
+
+
+def plane_scene_camera(height: int, width: int, device="cuda") -> Camera:
+    return make_camera(eye=[0.0, 1.5, 4.0], target=[0.0, 0.5, 0.0], up=[0.0, 1.0, 0.0],
+                       fov_y=np.radians(60.0), aspect=width / height, near=0.1, far=100.0,
+                       device=device)

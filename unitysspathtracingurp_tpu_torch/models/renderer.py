@@ -1,4 +1,4 @@
-"""Frame orchestrator, offline half (ScreenSpacePathTracingAccumulation.cs).
+"""Frame orchestrator (ScreenSpacePathTracingAccumulation.cs).
 
 Offline mode (DenoiserType.OFFLINE, static camera): trace (pass 0) ->
 progressive average (pass 3) -> progress bar (pass 4). NONE mode
@@ -6,32 +6,40 @@ returns the traced frame. Host control flow mirrors the C# side:
 invalidation on camera or scene-key change (cs:772-823), pause, the
 converged skip (cs:436-438), the depth-tiles cache, and save / load.
 
+Real-time modes (TEMPORAL / SPATIAL_TEMPORAL): trace with adaptive spp
+(pass 0) -> [SPATIAL_TEMPORAL] À-Trous x (2q + 1) (pass 5, kernel A1)
+-> temporal reprojection (pass 1, kernel T1) -> the history update
+(emission, color / count, depth). They neither run nor reset the
+offline invalidation, as in the JAX package.
+
 ``kernel`` picks the march: "auto" and "hiz" the hiz march (kernels
 K1 / K4 / K6 and R1), "xla" the parity march (kernel P1), as in the
 JAX package. ``hdr_64bit=False`` is the 11-bit-float HDR target: a
-bf16 accumulator and a 64-sample budget.
+bf16 accumulator and color / emission history, and a 64-sample budget.
 
-The real-time modes (ROADMAP Queue 1 item 10), render-scale upscaling
-(item 13) and multi-device sharding (item 14) raise
-NotImplementedError.
+Render-scale upscaling (ROADMAP Queue 1 item 13) and multi-device
+sharding (item 14) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..camera import Camera
+from ..camera import Camera, pixel_spread_angle_tangent
 from ..config import MAX_SAMPLES_LOW_PRECISION, DenoiserType, PTConfig, PTSettings
 from ..gbuffer import GBuffers
 from ..ops.accumulate import OfflineAccumState, add_convergence_cue, offline_accumulate
+from ..ops.atrous import atrous_filter
 from ..ops.envprobe import ProbeSet, constant_probe
 from ..ops.depth_tiles import variant_combos
 from ..ops.pathtrace import ray_march, trace_frame
 from ..ops.pathtrace_hiz import build_tiles_for, trace_frame_hiz
 from ..ops.rng import advance_frame_index
+from ..ops.temporal import TemporalState, temporal_reproject
 
 
 class Renderer:
@@ -54,17 +62,14 @@ class Renderer:
         device="cuda",
     ):
         """The JAX ``Renderer``'s arguments in its order, then ``device``.
-        ``fov_y`` is kept for the real-time modes (item 10). ``kernel``:
+        ``fov_y`` sets the temporal pass's pixel spread. ``kernel``:
         "auto" and "hiz" run the hiz march, "xla" the parity march.
-        ``hdr_64bit=False``: the accumulator is bf16 and the offline
-        budget caps at 64 samples (cs:810-814)."""
+        ``hdr_64bit=False``: the accumulator and the color / emission
+        history are bf16 and the offline budget caps at 64 samples
+        (cs:810-814)."""
         settings.validate()
         if kernel not in ("auto", "hiz", "xla"):
             raise ValueError(f"unknown kernel {kernel!r} (auto|hiz|xla)")
-        if settings.denoiser not in (DenoiserType.NONE, DenoiserType.OFFLINE):
-            raise NotImplementedError(
-                f"{settings.denoiser}: the real-time modes are ROADMAP Queue 1 item 10"
-            )
         if display_size is not None:
             raise NotImplementedError("display_size (upscale): ROADMAP Queue 1 item 13")
         if mesh is not None:
@@ -77,6 +82,9 @@ class Renderer:
         # ThicknessMode value: 2 (DepthNormals) lets back normals feed the
         # inside-object and back-hit normal flips.
         self.back_depth_enabled = int(settings.accurate_thickness.value)
+        self.pixel_spread_tangent = pixel_spread_angle_tangent(fov_y, width, height)
+        self.spatial_passes = (2 * settings.spatial_denoise_quality.value + 1
+                               if settings.denoiser == DenoiserType.SPATIAL_TEMPORAL else 0)
         self.height, self.width = height, width
         self.device = torch.device(device)
         self.probes = (
@@ -91,6 +99,7 @@ class Renderer:
         self._tiles_key = None  # (depth tensors held by reference, near, far)
         self.offline_state = OfflineAccumState.create(height, width, dtype=self.accum_dtype,
                                                       device=self.device)
+        self.temporal_state: Optional[TemporalState] = None
         self._prev_vp: Optional[np.ndarray] = None
         self._scene_key = None
 
@@ -127,38 +136,72 @@ class Renderer:
             self._tiles_key = (srcs, near, far)
         return self._tiles
 
-    def _trace(self, gb: GBuffers, cam: Camera):
+    def _trace(self, gb: GBuffers, cam: Camera, history_sample=None):
         """Pass 0 through the chosen march."""
         if self.kernel == "xla":
             return trace_frame(
                 gb, cam, self.probes, self.settings, self.cfg, self.variants,
                 self.frame_index, march_fn=ray_march,
-                back_depth_enabled=self.back_depth_enabled,
+                back_depth_enabled=self.back_depth_enabled, history_sample=history_sample,
             )
         return trace_frame_hiz(
             gb, cam, self.probes, self.settings, self.cfg, self.variants,
             self.frame_index, back_depth_enabled=self.back_depth_enabled,
-            tiles=self._get_tiles(gb, cam),
+            tiles=self._get_tiles(gb, cam), history_sample=history_sample,
         )
+
+    def _realtime(self, gb: GBuffers, cam: Camera):
+        """One real-time frame (JAX ``renderer.py:94-134``): trace with
+        adaptive spp, À-Trous x ``spatial_passes``, temporal
+        reprojection, then the new history. The new history's depth and
+        (f32) emission are the G-buffer's own tensors, and its (f32)
+        color is the returned image's."""
+        if self.temporal_state is None:
+            self.temporal_state = TemporalState.create(
+                self.height, self.width, cam, dtype=self.accum_dtype, device=self.device)
+        state = self.temporal_state
+        refr = self.variants.support_refraction
+        color = self._trace(gb, cam, history_sample=state.history_sample)
+        emission = gb.emission
+        for _ in range(self.spatial_passes):
+            color = atrous_filter(color, gb, emission, state.history_sample, self.cfg,
+                                  support_refraction=refr)
+        result = temporal_reproject(
+            color, gb, cam, state, emission, self.cfg,
+            temporal_intensity=self.settings.temporal_intensity,
+            pixel_spread_angle_tangent=self.pixel_spread_tangent, support_refraction=refr)
+        self.temporal_state = TemporalState(
+            history_color=result.color.to(self.accum_dtype),
+            history_sample=result.sample_count,
+            history_depth=gb.layer1_depth(),
+            history_emission=emission.to(self.accum_dtype),
+            prev_inv_view_proj=cam.inv_view_proj,
+            prev_view_proj=cam.view_proj,
+            prev_camera_position=cam.position,
+        )
+        return result.color
 
     def render_frame(self, gb: GBuffers, cam: Camera, scene_key=None):
         """Render one frame; returns the displayed image (H, W, 3)."""
         if not self.settings.state:
             return gb.emission
         denoiser = self.settings.denoiser
-        self._check_invalidation(cam, scene_key)
-        if denoiser == DenoiserType.OFFLINE and self.sample >= self.max_sample:
-            image = self.offline_state.accum
+        if denoiser in (DenoiserType.TEMPORAL, DenoiserType.SPATIAL_TEMPORAL):
+            image = self._realtime(gb, cam)
         else:
-            traced = self._trace(gb, cam)
-            self.offline_state = offline_accumulate(
-                self.offline_state, traced, self.max_sample, self.paused
-            )
-            image = traced if denoiser == DenoiserType.NONE else self.offline_state.accum
-        if denoiser == DenoiserType.OFFLINE and self.settings.progress_bar:
-            image = add_convergence_cue(
-                image, self.sample, self.max_sample, self.height, self.width
-            )
+            self._check_invalidation(cam, scene_key)
+            if denoiser == DenoiserType.OFFLINE and self.sample >= self.max_sample:
+                image = self.offline_state.accum
+            else:
+                traced = self._trace(gb, cam)
+                self.offline_state = offline_accumulate(
+                    self.offline_state, traced, self.max_sample, self.paused
+                )
+                image = traced if denoiser == DenoiserType.NONE else self.offline_state.accum
+            if denoiser == DenoiserType.OFFLINE and self.settings.progress_bar:
+                image = add_convergence_cue(
+                    image, self.sample, self.max_sample, self.height, self.width
+                )
         self.frame_index = advance_frame_index(self.frame_index)
         return image
 
@@ -171,6 +214,10 @@ class Renderer:
         }
         if self._prev_vp is not None:
             state["prev_vp"] = self._prev_vp
+        if self.temporal_state is not None:
+            for f in dataclasses.fields(TemporalState):
+                state[f"temporal_{f.name}"] = (
+                    getattr(self.temporal_state, f.name).float().cpu().numpy())
         np.savez(path, **state)
 
     def load(self, path: str):
@@ -182,3 +229,10 @@ class Renderer:
         )
         if "prev_vp" in data:
             self._prev_vp = data["prev_vp"]
+        if "temporal_history_color" in data:
+            low = ("history_color", "history_emission")
+            self.temporal_state = TemporalState(**{
+                f.name: torch.as_tensor(data[f"temporal_{f.name}"]).to(
+                    self.device, self.accum_dtype if f.name in low else torch.float32)
+                for f in dataclasses.fields(TemporalState)
+            })

@@ -1,9 +1,11 @@
 """Reflection-probe fallback on ray miss (PathTracingFallback.hlsl:264-318).
 
-Ported here: the oct mapping and the resolution-1 (constant-sky) probe
-path that the offline BoxScene frame takes. Box projection, probe mips,
-bilinear sampling of larger probes and the two-probe blend are ROADMAP
-Queue 1 item 12; a probe that needs them raises ``NotImplementedError``.
+Ported here: the oct mapping, the resolution-1 (constant-sky) probe
+path that the BoxScene and classroom frames take, and ``sample_bilinear``
+(the temporal pass reads its history through it). Box projection, probe
+mips, bilinear sampling of larger probes and the two-probe blend are
+ROADMAP Queue 1 item 12; a probe that needs them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -84,6 +86,33 @@ def constant_probe(color, resolution: int = 1, device="cuda") -> EnvProbe:
         position=z3.clone(),
         box_projection=torch.tensor(0.0, dtype=torch.float32, device=device),
     )
+
+
+def sample_bilinear(texture, uv):
+    """Bilinear sample of an (H, W, C) texture at uv (clamp-to-edge):
+    corner indices by ``floor`` of the clamped texel coordinate, corners
+    widened to f32 and blended as the JAX package does (``envprobe.py:
+    46-75``): each row across x, then the rows across y. A 1x1 texture
+    broadcasts its texel."""
+    h, w = texture.shape[0], texture.shape[1]
+    if h == 1 and w == 1:
+        return texture[0, 0].expand(uv.shape[:-1] + (texture.shape[-1],))
+    x = torch.clamp(uv[..., 0] * w - 0.5, 0.0, w - 1.0)
+    y = torch.clamp(uv[..., 1] * h - 0.5, 0.0, h - 1.0)
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    fx = (x - x0.to(x.dtype))[..., None]
+    fy = (y - y0.to(y.dtype))[..., None]
+    flat = texture.reshape(h * w, -1)
+
+    def at(yy, xx):
+        return flat[(yy * w + xx).clamp(0, h * w - 1)].float()
+
+    top = at(y0, x0) * (1.0 - fx) + at(y0, x1) * fx
+    bot = at(y1, x0) * (1.0 - fx) + at(y1, x1) * fx
+    return top * (1.0 - fy) + bot * fy
 
 
 def sample_probe(probe: EnvProbe, direction, position_ws, mip_level: float = 0.0):

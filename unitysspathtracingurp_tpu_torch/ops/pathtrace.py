@@ -439,7 +439,7 @@ def apply_backface_normal_flip(surf, src, uv, is_back_hit, variants, back_depth_
 
 
 def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
-                back_depth_enabled: int = 0):
+                back_depth_enabled: int = 0, history_sample=None):
     """Pass 0 (PathTracing.hlsl:385-496; shader:114-147). Returns the
     traced radiance (H, W, 3); sky pixels return ``gb.emission`` and,
     with the forward-only variant, forward-only pixels their emission.
@@ -447,7 +447,16 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
 
     ``samples_per_pixel`` > 1 runs the samples one after another, each on
     the stream ``sample_rng`` gives it, and sums them in sample order:
-    the JAX package's sample batch axis (``pathtrace.py:942-952``)."""
+    the JAX package's sample batch axis (``pathtrace.py:942-952``).
+
+    Adaptive spp (ref :430-433; JAX ``pathtrace.py:687-695``): under
+    temporal accumulation with a ``history_sample`` (H, W), a pixel whose
+    primary surface is smooth (> 0.5) or whose history holds one sample
+    takes max(ray_count_low_sample, spp) samples, the others spp. The
+    frame runs that maximum of samples; sample s is active where s is
+    below the pixel's ray count, and every contribution is scaled by the
+    pixel's 1 / ray count, a per-lane column that lane compaction
+    carries like the others."""
     variants.check_supported()
     dev = gb.device
     h, w = gb.height, gb.width
@@ -490,12 +499,21 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
             return hit_surface_from_gbuffer(gb, uv_, inside_, variants, back_depth_enabled)
 
     spp = settings.samples_per_pixel
-    # 1 / ray count in f32, as the JAX package divides; 1 spp skips the
-    # (exact) product by 1.
-    inv_ray_count = float(np.float32(1.0) / np.float32(spp)) if spp > 1 else None
+    adaptive = variants.temporal_accumulation and history_sample is not None
+    if adaptive:
+        boost = (primary_surf.smoothness > 0.5) | (history_sample == 1.0)
+        max_spp = max(cfg.ray_count_low_sample, spp)
+        ray_count = torch.where(boost, max_spp, spp).to(torch.float32)
+        inv_ray_count = 1.0 / ray_count
+    else:
+        # 1 / ray count in f32, as the JAX package divides; 1 spp skips
+        # the (exact) product by 1.
+        max_spp = spp
+        inv_ray_count = float(np.float32(1.0) / np.float32(spp)) if spp > 1 else None
 
-    def sample_body(rng):
-        """One path sample for every pixel lane: its radiance, (H*W, 3)."""
+    def sample_body(rng, s):
+        """Path sample ``s`` for every pixel lane: its radiance, (H*W, 3)."""
+        active = traceable & (s < ray_count) if adaptive else traceable
         # Bounce 0: shade the primary hit (ref :423-428).
         energy = torch.ones((h, w, 3), dtype=torch.float32, device=dev)
         res = evaluate_brdf(
@@ -512,16 +530,19 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
         )
         rng = res.rng
         radiance = energy * res.radiance
-        if inv_ray_count is not None:
+        if adaptive:
+            radiance = radiance * inv_ray_count[..., None]
+        elif inv_ray_count is not None:
             radiance = radiance * inv_ray_count
-        color = torch.where(traceable[..., None], radiance, torch.zeros_like(energy))
+        color = torch.where(active[..., None], radiance, torch.zeros_like(energy))
         energy = res.energy
         ray_dir = res.direction
         ray_pos = res.position
         inside = primary_surf.inside_object
-        alive = traceable & torch.any(energy != 0.0, dim=-1)
+        alive = active & torch.any(energy != 0.0, dim=-1)
         depth_quirk = primary_raw
         dither_b = dither
+        irc_b = inv_ray_count
 
         n_full = h * w
         color_flat = color.reshape(n_full, 3)
@@ -554,6 +575,8 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
                     # dither only with step dithering.
                     inside = take(inside) if variants.support_refraction else head(inside)
                     dither_b = take(dither_b) if settings.dithering else head(dither_b)
+                    if adaptive:
+                        irc_b = take(irc_b)
                     view_dir_b = normalize(cam.position - prim_pos_b)
                     alive = valid.reshape(ch, cw)
                     unwind.append((color_dom, slots, keep))
@@ -565,7 +588,7 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
                 view_dir_b, depth_quirk, alive,
                 # Screen-ordered pixel-grid lanes (bounce 0, spp 1, not
                 # compacted): the hiz march's home-prefix precondition.
-                home_ok=(bounce == 0 and spp == 1 and tuple(ray_pos.shape[:2]) == (h, w)),
+                home_ok=(bounce == 0 and max_spp == 1 and tuple(ray_pos.shape[:2]) == (h, w)),
             )
             surf = decode_at(march.uv, inside)
             surf = apply_backface_normal_flip(
@@ -579,7 +602,9 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
             rng = res.rng
             alive3 = alive[..., None]
             radiance = energy * res.radiance
-            if inv_ray_count is not None:
+            if adaptive:
+                radiance = radiance * irc_b[..., None]
+            elif inv_ray_count is not None:
                 radiance = radiance * inv_ray_count
             contrib = torch.where(alive3, radiance, torch.zeros_like(energy))
             if color_dom is None:
@@ -613,9 +638,9 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
             color_flat = color_flat + color_dom
         return color_flat
 
-    color_flat = sample_body(rng)
-    for s in range(1, spp):
-        color_flat = color_flat + sample_body(sample_rng(rng, s, settings.maximum_depth))
+    color_flat = sample_body(rng, 0)
+    for s in range(1, max_spp):
+        color_flat = color_flat + sample_body(sample_rng(rng, s, settings.maximum_depth), s)
     color = clamp_brightness_hsv(color_flat.reshape(h, w, 3), settings.maximum_intensity)
     if forward_only is not None:
         color = torch.where(forward_only[..., None], primary_surf.emission, color)

@@ -716,7 +716,7 @@ def build_tiles_for(gb, cam, variants):
 
 def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
                     back_depth_enabled: int = 0, n_rounds=None, tiles=None,
-                    _debug_out: dict | None = None):
+                    _debug_out: dict | None = None, history_sample=None):
     """Pass 0 with the hiz march (``trace_frame`` with ``march_fn``
     injected). ``back_depth_enabled`` is the ThicknessMode value (2 =
     DepthNormals: back normals feed the inside-object normal flip).
@@ -726,7 +726,8 @@ def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
     ``maximum_depth``. The JAX package indexes by call order, which its
     batched samples share (``pathtrace_hiz.py:1019-1031``); the same
     budget a bounce either way. ``_debug_out``: every bounce's march is
-    the diagnostic march (``ray_march_hiz``)."""
+    the diagnostic march (``ray_march_hiz``). ``history_sample``: the
+    temporal history's sample counts, for adaptive spp."""
     if tiles is None:
         tiles = build_tiles_for(gb, cam, variants)
     rounds = n_rounds if n_rounds is not None else cfg.hiz_rounds
@@ -741,4 +742,5 @@ def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
     else:
         march_fn = partial(ray_march_hiz, tiles=tiles, n_rounds=rounds, _debug_out=_debug_out)
     return trace_frame(gb, cam, probes, settings, cfg, variants, frame_index,
-                       march_fn=march_fn, back_depth_enabled=back_depth_enabled)
+                       march_fn=march_fn, back_depth_enabled=back_depth_enabled,
+                       history_sample=history_sample)

@@ -43,6 +43,12 @@ def construct_float(m):
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
+def hashed_random_float(pix_x, pix_y, z):
+    """GenerateHashedRandomFloat(uint3(pixel, z)): int64 tensors (or
+    ints) holding uint32 values -> f32 in [0, 1)."""
+    return construct_float(jenkins_hash_u32_3(pix_x & M32, pix_y & M32, z & M32))
+
+
 @dataclasses.dataclass
 class RNG:
     pix_x: torch.Tensor  # (...) int64 pixel column
