@@ -790,6 +790,74 @@ def test_atrous_kernel_bit_exact(size, acase):
                  row_offset=17 if acase == "row offset 17" else 0)
 
 
+# A1's tile (the block's 32x16 pixels and a 9-px halo): images smaller
+# than the halo, exact multiples of the 32x8, 32x16 and 64x16 blocks, and
+# one more than a multiple in each axis.
+ATROUS_EDGE_SIZES = ((5, 300), (300, 5), (9, 9), (32, 128), (33, 129))
+
+
+@pytest.mark.parametrize("size", ATROUS_EDGE_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_atrous_tile_edges_bit_exact(size):
+    gb, _, color, state = _rt_case(*size)
+    check_atrous(gb, color, state.history_sample)
+
+
+@pytest.mark.parametrize("acase", ["refraction", "row offset 17"])
+def test_atrous_odd_shape_bit_exact(acase):
+    gb, _, color, state = _rt_case(33, 129, glass=acase == "refraction")
+    check_atrous(gb, color, state.history_sample, refr=acase == "refraction",
+                 row_offset=17 if acase == "row offset 17" else 0)
+
+
+def test_atrous_blocks_that_pass_through_beside_ones_that_filter():
+    """The left 64 columns at blur 0 and one 32x16 block of sky pass
+    through whole blocks; the rest filters."""
+    gb, _, color, state = _rt_case(32, 128)
+    counts = state.history_sample.clone()
+    counts[:, :64] = 9.0  # 9 / 8 - 1 / 8 = 1: blur 0
+    depth = gb.depth.clone()
+    depth[16:, 64:96] = 0.0
+    gb = dataclasses.replace(gb, depth=depth)
+    got = check_atrous(gb, color, counts)
+    assert torch.equal(_bits(got[:, :64]), _bits(color[:, :64]))
+    assert torch.equal(_bits(got[16:, 64:96]), _bits(color[16:, 64:96]))
+    assert not torch.equal(got[:, 96:], color[:, 96:])
+
+
+def test_atrous_nan_and_inf_in_color_bit_exact():
+    """NaN and +-inf in the color reach the clamps through the tile, as
+    centers and as taps."""
+    gb, _, color, state = _rt_case(37, 53)
+    color = color.clone()
+    color[3, 5, 0] = float("nan")
+    color[10, 20] = float("inf")
+    color[20, 30, 2] = -float("inf")
+    color[30, 40] = float("nan")
+    color[36, 52, 1] = float("inf")
+    check_atrous(gb, color, state.history_sample)
+
+
+def test_atrous_two_streams_bit_exact():
+    """A1 on two streams at once with different inputs and row offsets."""
+    from unitysspathtracingurp_tpu_torch.ops import atrous
+
+    calls = []
+    for seed, row_offset in ((3, 0), (4, 17)):
+        gb, _, color, state = _rt_case(256, 256, seed=seed)
+        calls.append((color, gb, gb.emission, state.history_sample, PTConfig(), False,
+                      row_offset))
+    refs = [atrous.atrous_filter_ref(*c) for c in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for s, c in zip(streams, calls):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            got.append(atrous.atrous_filter(*c))
+    torch.cuda.synchronize()
+    for g, r in zip(got, refs):
+        assert torch.equal(_bits(g), _bits(r))
+
+
 def check_temporal(gb, cam, color, state, refr=False):
     from unitysspathtracingurp_tpu_torch.ops import temporal
 

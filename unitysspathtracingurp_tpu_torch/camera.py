@@ -132,10 +132,15 @@ def linear_eye_depth(raw_depth, near, far):
 def pixel_uv(height: int, width: int, device):
     """Per-pixel uv grid (H, W, 2); row 0 = bottom of the image.
 
-    The divisors are tensors on ``device``: torch divides a CUDA tensor
-    by a Python number as a product with its f32 reciprocal, and a
-    tensor divisor keeps the IEEE quotient (x + 0.5) / n that the CPU,
-    the JAX package and kernel T1 compute."""
+    Rounding. Eager JAX, and torch on the CPU, compute the IEEE quotient
+    (x + 0.5) / n. Jitted JAX, which is how the JAX Renderer runs its
+    steps, multiplies by the f32 reciprocal of the static n, which
+    differs by an ulp for many x where n is not a power of two. Torch on
+    the card does the same with a Python-number divisor. The divisors
+    here are tensors on ``device``, so the card, the CPU and kernel T1
+    all take the IEEE quotient and agree with each other bit for bit;
+    uv is held against the JAX package at a tolerance, not bit for
+    bit."""
     f32 = torch.float32
 
     def axis(n):

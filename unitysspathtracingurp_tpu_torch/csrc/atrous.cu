@@ -21,33 +21,67 @@
 // What bounds it. Bytes: each pixel's color, emission, normal and albedo
 // (3 floats each), its count and depth read once, its color written once:
 // 68 B a pixel, 141 MB at 1080p, 0.042 ms at 3.35 TB/s (REFR adds the
-// transparent type, normal and albedo: 32 B). The taps re-read
-// neighbours within 9 px; those reads hit L1 / L2. The arithmetic is
-// ~560 f32 operations a filtered pixel (its 36 exp counted as one each),
-// ~1.2 GFLOP at 1080p, 0.017 ms at the f32 rate: the bytes bound it.
+// transparent type, normal and albedo: 32 B). The arithmetic is ~560 f32
+// operations a filtered pixel (its 36 exp counted as one each), ~1.2
+// GFLOP at 1080p, 0.017 ms at the f32 rate: the bytes bound it. The
+// weights are per-pixel nonlinear functions of each tap (exp of squared
+// differences), not a product of two operands, so tensor cores do not
+// apply.
 //
-// The design: one thread a pixel in 32 x 8 blocks, so that a warp's taps
-// at one offset fall on a few rows of nearby texels and share sectors in
-// L1. Every read goes through __ldg (read-only path). The radius is
-// hashed by each thread for itself in uint32 arithmetic (the plain
-// version's int64 with masks gives the same bits). One launch an
-// iteration: an iteration reads its neighbours' previous output up to
-// 9 px away, so iterations cannot fuse in one launch without a halo
-// exchange across blocks.
+// The design: a block of BX x BY pixels, PY of them a thread (rows BY / PY
+// apart, so a warp is 32 neighbouring pixels of one row), first fills a
+// shared tile of (BY + 18) x (BX + 18) texels: the block's pixels and a
+// 9-px halo. Tile column j holds image column clamp(x0 - 9 + j, 0, w - 1)
+// and tile row i image row clamp(y0 - 9 + i, 0, h - 1), for the block's
+// origin (x0, y0). A tap's coordinate is clamped to the image as before
+// and then offset by (9 - x0, 9 - y0). It always lands in the tile:
+// |dx r| <= 9, so x + dx r lies in [x0 - 9, x0 + BX + 8]; clamping moves
+// it only to 0 (which is >= x0 - 9 when x + dx r < 0) or to w - 1 (which
+// is >= x >= x0 and < x + dx r); and the tile column of a coordinate
+// already inside [0, w - 1] holds that very column, so the tile gives the
+// bits the global read gave. Each tile texel holds 12 f32, as channel
+// planes: color, emission, the effective normal and
+// sqrtf(max(albedo, 0)) of the effective albedo (under REFR the
+// transparent layer's where the texel is refractive and that layer is
+// non-zero). So the REFR select and the square root run once per texel,
+// at fill time, and not once per tap (each texel is a tap of ~9 pixels);
+// REFR adds no shared memory. The fill is coalesced: consecutive threads
+// take consecutive floats of a tile row's span of 3 (BX + 18) floats
+// (clamped only at the image's edges), each plane starts at a word
+// offset = 11 (mod 32) from the last, so a warp's stores to the three
+// planes of an image fall on distinct banks. Then each pixel reads its
+// center and its 9 taps from the tile; only its count, depth and (REFR)
+// transparent type come from device memory. A block whose pixels all pass
+// through (sky, blur 0: __syncthreads_or) skips the fill and copies its
+// color. One launch an iteration: an iteration reads its neighbours'
+// previous output up to 9 px away, so fusing iterations would need a halo
+// recomputed per iteration. The tile needs dynamic shared memory above
+// 48 KB: the entry point raises the kernel's limit before each launch.
 //
 // Numerics: --fmad=false, IEEE divides and square roots, expf (no fast
 // math), and every expression in the order of the plain version: channel
 // sums (x*x + y*y) + z*z, the weight product left to right, the taps
-// summed in order from 0. Clamps propagate NaN as torch.clamp does. Each
-// output bit equals atrous_filter_ref's on the card.
+// summed in order from 0. Clamps propagate NaN as torch.clamp does. Only
+// where each value is read from, and when each square root is taken,
+// differ from a read per tap. Each output bit equals atrous_filter_ref's
+// on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BX = 32, BY = 8;
+constexpr int BX = 32, BY = 16, PY = 2;
+constexpr int HALO = 9;
+constexpr int TW = BX + 2 * HALO, TH = BY + 2 * HALO;
+// Words a plane takes: the tile, padded to 11 (mod 32).
+constexpr int PLANE = TW * TH + (11 - TW * TH % 32 + 32) % 32;
+constexpr int THREADS = BX * BY / PY;
+// Planes: color, emission, normal, sqrt-albedo, 3 channels each.
+constexpr int COLOR = 0, EMISSION = 3, NORMAL = 6, SQRT_ALBEDO = 9;
+constexpr size_t SMEM_BYTES = 12 * PLANE * sizeof(float);
 constexpr int SURFACE_TYPE_REFRACTION = 2;
+static_assert(BX % 32 == 0 && BY % PY == 0, "a warp is 32 pixels of one row");
 
 // The 3x3 Gaussian's weight of tap k (row-major, center 4).
 __host__ __device__ constexpr float tap_weight(int k) {
@@ -93,77 +127,70 @@ __device__ __forceinline__ float hashed_random_float(uint32_t x, uint32_t y, uin
 
 __device__ __forceinline__ float sum_sq(float a, float b, float c) { return a * a + b * b + c * c; }
 
-__device__ __forceinline__ void load3(const float* p, int i, float v[3]) {
-  v[0] = __ldg(p + 3 * i);
-  v[1] = __ldg(p + 3 * i + 1);
-  v[2] = __ldg(p + 3 * i + 2);
+// Channel c of texel q of the transparent layer t where that texel is
+// refractive and the layer there is non-zero, else v.
+__device__ __forceinline__ float transparent_or(const float* t, int q, int c, float v) {
+  const float t0 = __ldg(t + 3 * q), t1 = __ldg(t + 3 * q + 1), t2 = __ldg(t + 3 * q + 2);
+  return t0 != 0.0f || t1 != 0.0f || t2 != 0.0f ? (c == 0 ? t0 : c == 1 ? t1 : t2) : v;
 }
 
-// The normal and albedo guides of texel q.
+// The block's tile: every float of the (TH, TW) texels' color, emission,
+// effective normal and sqrt of the effective albedo, one float a thread
+// in turn, consecutive threads on consecutive floats of a tile row.
 template <bool REFR>
-__device__ __forceinline__ void guides(const Args& a, int q, float n[3], float al[3]) {
-  load3(a.normal, q, n);
-  load3(a.albedo, q, al);
-  if (REFR && __ldg(a.t_type + q) == SURFACE_TYPE_REFRACTION) {
-    float t[3];
-    load3(a.t_normal, q, t);
-    if (t[0] != 0.0f || t[1] != 0.0f || t[2] != 0.0f) {
-      n[0] = t[0];
-      n[1] = t[1];
-      n[2] = t[2];
+__device__ __forceinline__ void fill_tile(const Args& a, float* tile, int x0, int y0) {
+  for (int e = threadIdx.x; e < TH * TW * 3; e += THREADS) {
+    const int i = e / (3 * TW);
+    const int f = e - i * (3 * TW);
+    const int j = f / 3, c = f - 3 * j;
+    const int gx = min(max(x0 - HALO + j, 0), a.w - 1);
+    const int gy = min(max(y0 - HALO + i, 0), a.h - 1);
+    const int q = gy * a.w + gx;
+    const int s = i * TW + j;
+    float n = __ldg(a.normal + 3 * q + c), al = __ldg(a.albedo + 3 * q + c);
+    if (REFR && __ldg(a.t_type + q) == SURFACE_TYPE_REFRACTION) {
+      n = transparent_or(a.t_normal, q, c, n);
+      al = transparent_or(a.t_albedo, q, c, al);
     }
-    load3(a.t_albedo, q, t);
-    if (t[0] != 0.0f || t[1] != 0.0f || t[2] != 0.0f) {
-      al[0] = t[0];
-      al[1] = t[1];
-      al[2] = t[2];
-    }
+    tile[(COLOR + c) * PLANE + s] = __ldg(a.color + 3 * q + c);
+    tile[(EMISSION + c) * PLANE + s] = __ldg(a.emission + 3 * q + c);
+    tile[(NORMAL + c) * PLANE + s] = n;
+    tile[(SQRT_ALBEDO + c) * PLANE + s] = sqrtf(clamp_min(al, 0.0f));
   }
 }
 
+// Plane k's value at tile texel s.
+__device__ __forceinline__ float at(const float* tile, int k, int s) { return tile[k * PLANE + s]; }
+
+// Pixel (x, y) at tile texel s0, filtered from the tile with the remapped
+// blur gate.
 template <bool REFR>
-__global__ void __launch_bounds__(BX * BY) atrous_kernel(Args a) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= a.w || y >= a.h) return;
+__device__ __forceinline__ void filter_pixel(const Args& a, const float* tile, int x, int y,
+                                             int x0, int y0, int s0, float remapped) {
   const int p = y * a.w + x;
-  float c[3];
-  load3(a.color, p, c);
-  float* o = a.out + 3 * static_cast<size_t>(p);
-  const float ratio = __ldg(a.count + p) / a.max_n;
-  const float blur = 1.0f - saturate(clamp_max(ratio, a.max_n) - a.inv_n);
-  if (__ldg(a.depth + p) == 0.0f || blur == 0.0f) {
-    o[0] = c[0];
-    o[1] = c[1];
-    o[2] = c[2];
-    return;
-  }
-  float inv = 1.0f - blur;
-  inv = inv * inv;
-  inv = inv * inv;
-  const float remapped = 1.0f - inv;
+  const float c[3] = {at(tile, COLOR, s0), at(tile, COLOR + 1, s0), at(tile, COLOR + 2, s0)};
+  const float cn[3] = {at(tile, NORMAL, s0), at(tile, NORMAL + 1, s0), at(tile, NORMAL + 2, s0)};
+  const float sa[3] = {at(tile, SQRT_ALBEDO, s0), at(tile, SQRT_ALBEDO + 1, s0),
+                       at(tile, SQRT_ALBEDO + 2, s0)};
+  float ce[3] = {at(tile, EMISSION, s0), at(tile, EMISSION + 1, s0), at(tile, EMISSION + 2, s0)};
+  const bool use_ew = !REFR || __ldg(a.t_type + p) != SURFACE_TYPE_REFRACTION;
+  if (!use_ew) ce[0] = ce[1] = ce[2] = 0.0f;
   const uint32_t hy = static_cast<uint32_t>(y) + static_cast<uint32_t>(a.row_offset);
   const int r = static_cast<int>(floorf(3.0f + 6.0f * hashed_random_float(x, hy, 1u)));
 
-  float cn[3], ca[3], ce[3];
-  guides<REFR>(a, p, cn, ca);
-  const bool use_ew = !REFR || __ldg(a.t_type + p) != SURFACE_TYPE_REFRACTION;
-  load3(a.emission, p, ce);
-  if (!use_ew) ce[0] = ce[1] = ce[2] = 0.0f;
-  const float sa[3] = {sqrtf(clamp_min(ca[0], 0.0f)), sqrtf(clamp_min(ca[1], 0.0f)),
-                       sqrtf(clamp_min(ca[2], 0.0f))};
-
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, sw = 0.0f;
+  float sum0 = 0.0f, sum1 = 0.0f, sum2 = 0.0f, sw = 0.0f;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int dx = k % 3 - 1, dy = k / 3 - 1;
     const int qx = min(max(x + dx * r, 0), a.w - 1);
     const int qy = min(max(y + dy * r, 0), a.h - 1);
-    const int q = qy * a.w + qx;
-    float tc[3], te[3], tn[3], ta[3];
-    load3(a.color, q, tc);
-    load3(a.emission, q, te);
-    guides<REFR>(a, q, tn, ta);
+    const int s = (qy - y0 + HALO) * TW + (qx - x0 + HALO);
+    const float tc[3] = {at(tile, COLOR, s), at(tile, COLOR + 1, s), at(tile, COLOR + 2, s)};
+    const float te[3] = {at(tile, EMISSION, s), at(tile, EMISSION + 1, s),
+                         at(tile, EMISSION + 2, s)};
+    const float tn[3] = {at(tile, NORMAL, s), at(tile, NORMAL + 1, s), at(tile, NORMAL + 2, s)};
+    const float ta[3] = {at(tile, SQRT_ALBEDO, s), at(tile, SQRT_ALBEDO + 1, s),
+                         at(tile, SQRT_ALBEDO + 2, s)};
     const float cw = clamp_max(expf(-sum_sq(c[0] - tc[0], c[1] - tc[1], c[2] - tc[2]) * 1.1f), 1.0f);
     float ew = clamp_max(
         expf(-sum_sq(ce[0] - te[0], ce[1] - te[1], ce[2] - te[2]) * 2000.0f), 1.0f);
@@ -172,20 +199,82 @@ __global__ void __launch_bounds__(BX * BY) atrous_kernel(Args a) {
         expf(-clamp_min(sum_sq(cn[0] - tn[0], cn[1] - tn[1], cn[2] - tn[2]), 0.0f) * 20.0f),
         1.0f);
     const float aw = clamp_max(
-        expf(-sum_sq(sa[0] - sqrtf(clamp_min(ta[0], 0.0f)), sa[1] - sqrtf(clamp_min(ta[1], 0.0f)),
-                     sa[2] - sqrtf(clamp_min(ta[2], 0.0f))) *
-             400.0f),
-        1.0f);
+        expf(-sum_sq(sa[0] - ta[0], sa[1] - ta[1], sa[2] - ta[2]) * 400.0f), 1.0f);
     const float wt = cw * ew * nw * aw * tap_weight(k);
-    s0 = s0 + tc[0] * wt;
-    s1 = s1 + tc[1] * wt;
-    s2 = s2 + tc[2] * wt;
+    sum0 = sum0 + tc[0] * wt;
+    sum1 = sum1 + tc[1] * wt;
+    sum2 = sum2 + tc[2] * wt;
     sw = sw + wt;
   }
   const float den = clamp_min(sw, 1e-12f);
-  o[0] = c[0] + (s0 / den - c[0]) * remapped;
-  o[1] = c[1] + (s1 / den - c[1]) * remapped;
-  o[2] = c[2] + (s2 / den - c[2]) * remapped;
+  float* o = a.out + 3 * static_cast<size_t>(p);
+  o[0] = c[0] + (sum0 / den - c[0]) * remapped;
+  o[1] = c[1] + (sum1 / den - c[1]) * remapped;
+  o[2] = c[2] + (sum2 / den - c[2]) * remapped;
+}
+
+template <bool REFR>
+__global__ void __launch_bounds__(THREADS) atrous_kernel(Args a) {
+  extern __shared__ float tile[];
+  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
+  const int lx = threadIdx.x % BX, ly = threadIdx.x / BX;
+  const int x = x0 + lx;
+  // Per pixel of the thread: 0 out of the image, 1 passes through, 2 filters.
+  int state[PY];
+  float remapped[PY];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < PY; ++k) {
+    const int y = y0 + ly + k * (BY / PY);
+    state[k] = 0;
+    remapped[k] = 0.0f;
+    if (x < a.w && y < a.h) {
+      const int p = y * a.w + x;
+      const float ratio = __ldg(a.count + p) / a.max_n;
+      const float blur = 1.0f - saturate(clamp_max(ratio, a.max_n) - a.inv_n);
+      state[k] = __ldg(a.depth + p) == 0.0f || blur == 0.0f ? 1 : 2;
+      float inv = 1.0f - blur;
+      inv = inv * inv;
+      inv = inv * inv;
+      remapped[k] = 1.0f - inv;
+      any = any || state[k] == 2;
+    }
+  }
+  const bool fill = __syncthreads_or(any);
+  if (fill) {
+    fill_tile<REFR>(a, tile, x0, y0);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < PY; ++k) {
+    const int y = y0 + ly + k * (BY / PY);
+    const int s0 = (ly + k * (BY / PY) + HALO) * TW + lx + HALO;
+    if (state[k] == 2) {
+      filter_pixel<REFR>(a, tile, x, y, x0, y0, s0, remapped[k]);
+    } else if (state[k] == 1) {
+      const size_t p = static_cast<size_t>(y) * a.w + x;
+      float* o = a.out + 3 * p;
+      if (fill) {
+        o[0] = at(tile, COLOR, s0);
+        o[1] = at(tile, COLOR + 1, s0);
+        o[2] = at(tile, COLOR + 2, s0);
+      } else {
+        o[0] = __ldg(a.color + 3 * p);
+        o[1] = __ldg(a.color + 3 * p + 1);
+        o[2] = __ldg(a.color + 3 * p + 2);
+      }
+    }
+  }
+}
+
+template <bool REFR>
+int launch(const Args& a, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      atrous_kernel<REFR>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.w + BX - 1) / BX, (a.h + BY - 1) / BY);
+  atrous_kernel<REFR><<<grid, THREADS, SMEM_BYTES, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -201,14 +290,7 @@ extern "C" int sspt_atrous(const void* color, const void* emission, const void* 
                   static_cast<const int64_t*>(t_type), static_cast<const float*>(t_normal),
                   static_cast<const float*>(t_albedo), static_cast<float*>(out),
                   h, w, row_offset, max_n, inv_n};
-  if (h > 0 && w > 0) {
-    const dim3 grid((w + BX - 1) / BX, (h + BY - 1) / BY), block(BX, BY);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (refr) {
-      atrous_kernel<true><<<grid, block, 0, s>>>(a);
-    } else {
-      atrous_kernel<false><<<grid, block, 0, s>>>(a);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return refr ? launch<true>(a, s) : launch<false>(a, s);
 }
