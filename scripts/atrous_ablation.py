@@ -31,15 +31,21 @@ copies' output against ``atrous_filter_ref`` bit for bit, on:
 It also times the shipped T1 (``ops.temporal.temporal_reproject``; time
 only) on the own inputs of a (g) and an (h) frame.
 
-The copies of the shipped (tile) design: ``32x8-1px`` ... ``64x16-2px``
-(the block's BX x BY pixels and the pixels a thread; the shipped file is
-one of them), ``carveout-max`` (the kernel asks for the largest shared
-memory carveout), ``cp-async`` (the tile filled by 4-byte ``cp.async``
-copies, then the square root and the refraction select in place, each
-thread on the floats it copied). Timing only, outputs not held:
-``tile-tap-center`` (each tap reads the tile texel k - 4 columns from
-its pixel: consecutive words, no bank conflicts; the tile's scattered-
-read term) and ``tile-fast-exp`` (``__expf`` for ``expf``).
+The copies of the shipped design (a block walks down a strip of 32
+columns in steps of STEP rows, over SEG rows, through a ring of rows in
+shared memory): ``step8-seg32`` ... ``step16-seg128`` (the shipped file
+is one of them), ``carveout-max`` (the kernel asks for the largest
+shared-memory carveout), ``sync-fill`` (the next step's rows fetched
+after this step's taps instead of during them) and ``ldg-fill`` (plain
+loads through registers instead of ``cp.async``). Timing only, outputs
+not held: ``ring-tap-center`` (each tap reads the ring word k - 4 from
+its pixel's: no scattered shared reads), ``ring-fast-exp`` (``__expf``
+for ``expf``), ``ring-no-load`` (the fill stores values made from the
+texel index: no device reads) and ``ring-no-filter`` (every pixel
+copies its color from the ring: the fill alone). The two-dimensional
+tiles that came before the ring (32x8, 32x16 and 64x16 blocks, 1 or 2
+pixels a thread, with plain loads or ``cp.async``) are in this script's
+git history.
 
 The split of the parent design (timing only): ``parent-tap-center``
 (each tap reads the texel k - 4 columns from its pixel in the pixel's
@@ -83,12 +89,16 @@ from unitysspathtracingurp_tpu_torch.ops import atrous, temporal  # noqa: E402
 OUT_DIR = ROOT / "build" / "atrous_ablation"
 ENTRY = "sspt_atrous"
 
-SHAPE = re.compile(r"constexpr int BX = (\d+), BY = (\d+), PY = (\d+);\n")
+SHAPE = re.compile(r"constexpr int BX = (\d+), STEP = (\d+), SEG = (\d+);\n")
 
 
-def shape(bx: int, by: int, py: int) -> list:
-    """The shipped file's block shape line, replaced."""
-    return [(SHAPE, f"constexpr int BX = {bx}, BY = {by}, PY = {py};\n")]
+AHEAD = re.compile(r"constexpr int AHEAD = (\w+);\n")
+
+
+def shape(step: int, seg: int) -> list:
+    """The shipped file's block shape line, replaced: STEP rows a step,
+    SEG rows a block."""
+    return [(SHAPE, f"constexpr int BX = 32, STEP = {step}, SEG = {seg};\n")]
 
 
 # Both files: expf -> __expf.
@@ -99,57 +109,61 @@ CARVEOUT = [("  if (e != cudaSuccess) return static_cast<int>(e);\n",
              "  cudaFuncSetAttribute(atrous_kernel<REFR>,\n"
              "                       cudaFuncAttributePreferredSharedMemoryCarveout,\n"
              "                       cudaSharedmemCarveoutMaxShared);\n")]
-TILE_TAP = [("    const int s = (qy - y0 + HALO) * TW + (qx - x0 + HALO);\n",
+# The shipped file: each tap reads the ring word k - 4 from its pixel's.
+RING_TAP = [("    const int s = slot(qy, ys) * TW + (qx - x0 + HALO);\n",
              "    const int s = s0 + k - 4 + 0 * (qy + qx);\n")]
-# The shipped file: the fill through cp.async, then the select and the
-# square root in place (each thread on its own floats: no barrier).
-FILL_HEAD = "    float n = __ldg(a.normal + 3 * q + c), al = __ldg(a.albedo + 3 * q + c);\n"
-FILL_TAIL = ("    tile[(COLOR + c) * PLANE + s] = __ldg(a.color + 3 * q + c);\n"
-             "    tile[(EMISSION + c) * PLANE + s] = __ldg(a.emission + 3 * q + c);\n"
-             "    tile[(NORMAL + c) * PLANE + s] = n;\n"
-             "    tile[(SQRT_ALBEDO + c) * PLANE + s] = sqrtf(clamp_min(al, 0.0f));\n"
-             "  }\n")
-CP_ASYNC = [
-    ("template <bool REFR>\n__device__ __forceinline__ void fill_tile(",
-     "__device__ __forceinline__ void copy4(float* dst, const float* src) {\n"
-     "  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));\n"
-     "  asm volatile(\"cp.async.ca.shared.global [%0], [%1], 4;\\n\" :: \"r\"(d), \"l\"(src));\n"
-     "}\n\ntemplate <bool REFR>\n__device__ __forceinline__ void fill_tile("),
-    (FILL_HEAD,
-     "    copy4(tile + (COLOR + c) * PLANE + s, a.color + 3 * q + c);\n"
-     "    copy4(tile + (EMISSION + c) * PLANE + s, a.emission + 3 * q + c);\n"
-     "    copy4(tile + (NORMAL + c) * PLANE + s, a.normal + 3 * q + c);\n"
-     "    copy4(tile + (SQRT_ALBEDO + c) * PLANE + s, a.albedo + 3 * q + c);\n"
-     "  }\n"
-     "  asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
-     "  for (int e = threadIdx.x; e < TH * TW * 3; e += THREADS) {\n"
-     "    const int i = e / (3 * TW);\n"
-     "    const int f = e - i * (3 * TW);\n"
-     "    const int j = f / 3, c = f - 3 * j;\n"
-     "    const int gx = min(max(x0 - HALO + j, 0), a.w - 1);\n"
-     "    const int gy = min(max(y0 - HALO + i, 0), a.h - 1);\n"
-     "    const int q = gy * a.w + gx;\n"
-     "    const int s = i * TW + j;\n"
-     "    float n = tile[(NORMAL + c) * PLANE + s], al = tile[(SQRT_ALBEDO + c) * PLANE + s];\n"),
-    (FILL_TAIL,
-     "    tile[(NORMAL + c) * PLANE + s] = n;\n"
-     "    tile[(SQRT_ALBEDO + c) * PLANE + s] = sqrtf(clamp_min(al, 0.0f));\n"
-     "  }\n"),
-]
-# The shipped file: the fill's global reads replaced by values made from
-# the texel index (finite, no memory access).
-NO_LOAD = [(FILL_HEAD, "    float n = 0.5f + 1e-8f * q, al = 0.25f + 1e-8f * c;\n"),
-           ("tile[(COLOR + c) * PLANE + s] = __ldg(a.color + 3 * q + c);",
-            "tile[(COLOR + c) * PLANE + s] = 0.125f * c + 1e-9f * q;"),
-           ("tile[(EMISSION + c) * PLANE + s] = __ldg(a.emission + 3 * q + c);",
-            "tile[(EMISSION + c) * PLANE + s] = 1e-9f * q;")]
-# The shipped file: every pixel copies its color from the tile (the fill
-# and the stores alone).
-NO_FILTER = [("    if (state[k] == 2) {\n", "    if (state[k] == 2 && false) {\n"),
-             ("    } else if (state[k] == 1) {\n", "    } else if (state[k] != 0) {\n")]
+COPIES_IN = ("          copy4(t + (COLOR + c) * PLANE, a.color + 3 * q + c);\n"
+             "          copy4(t + (EMISSION + c) * PLANE, a.emission + 3 * q + c);\n"
+             "          copy4(t + (NORMAL + c) * PLANE, a.normal + 3 * q + c);\n"
+             "          copy4(t + (SQRT_ALBEDO + c) * PLANE, a.albedo + 3 * q + c);\n")
+# The shipped file: the fill's reads replaced by stores of values made
+# from the texel index (finite, no memory access).
+NO_LOAD = [(COPIES_IN,
+            "          t[(COLOR + c) * PLANE] = 0.125f * c + 1e-9f * q;\n"
+            "          t[(EMISSION + c) * PLANE] = 1e-9f * q;\n"
+            "          t[(NORMAL + c) * PLANE] = 0.5f + 1e-8f * q;\n"
+            "          t[(SQRT_ALBEDO + c) * PLANE] = 0.25f + 1e-8f * c;\n")]
+# The shipped file: the parent's clamps (an isnan test and a select
+# around fminf / fmaxf) instead of min.NaN / max.NaN.
+CLAMP_MAX = ('  float d;\n  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(x), "f"(hi));\n'
+             '  return d;\n')
+CLAMP_MIN = ('  float d;\n  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(x), "f"(lo));\n'
+             '  return d;\n')
+ISNAN_CLAMPS = [(CLAMP_MAX, "  return isnan(x) ? x : fminf(x, hi);\n"),
+                (CLAMP_MIN, "  return isnan(x) ? x : fmaxf(x, lo);\n")]
+# The shipped file: every pixel copies its color from the ring (the
+# fill and the stores alone).
+NO_FILTER = [("      if (pixel_state(a, p, &remapped) == 2) {\n",
+              "      if (pixel_state(a, p, &remapped) == 2 && false) {\n")]
+# The shipped file: the next step's rows fetched after this step's taps,
+# not during them.
+ISSUE_NEXT = "    if (k + 1 < steps) fill_rows<REFR, false>(a, ring, x0, ys, next, STEP);\n"
+FINISH_NEXT = "    if (k + 1 < steps) fill_rows<REFR, true>(a, ring, x0, ys, next, STEP);\n"
+SYNC_FILL = [(ISSUE_NEXT, ""), (FINISH_NEXT, ISSUE_NEXT + FINISH_NEXT)]
+# The shipped file: a ring of the step's window alone (AHEAD = 0 rows
+# ahead), so more blocks fit an SM; the next step's rows are fetched
+# between two barriers after this step's taps, into the slots of the
+# rows it no longer reads.
+NO_AHEAD = [("constexpr int AHEAD = STEP;\n", "constexpr int AHEAD = 0;\n"),
+            (ISSUE_NEXT, ""),
+            (FINISH_NEXT + "    __syncthreads();\n",
+             "    __syncthreads();\n    if (k + 1 < steps) {\n  " + ISSUE_NEXT + "  "
+             + FINISH_NEXT + "      __syncthreads();\n    }\n")]
+# The shipped file: plain loads through registers instead of cp.async.
+LDG_FILL = [("  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));\n"
+             '  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\\n" ::"r"(d), "l"(src));\n',
+             "  *dst = __ldg(src);\n")]
 # The parent file (one thread a pixel, a global read a tap).
 PARENT_TAP = [("    const int q = qy * a.w + qx;\n",
                "    const int q = y * a.w + min(max(x + k - 4, 0), a.w - 1) + 0 * (qy + qx);\n")]
+PARENT_BOUNDS = "__global__ void __launch_bounds__(BX * BY) atrous_kernel(Args a) {\n"
+
+
+def parent_min_blocks(b: int) -> list:
+    """The parent file with ``b`` blocks an SM asked of ptxas."""
+    return [(PARENT_BOUNDS, PARENT_BOUNDS.replace("(BX * BY)", f"(BX * BY, {b})"))]
+
+
 PARENT_SQRT = [(f"sqrtf(clamp_min(ta[{c}], 0.0f))", f"(sa[{c}] + 0.0f * ta[{c}])")
                for c in range(3)]
 
@@ -166,24 +180,26 @@ class Copy(NamedTuple):
 
 COPIES = {
     "library": Copy([]),
-    **{f"{bx}x{by}-{py}px": Copy(shape(bx, by, py))
-       for bx, by in ((32, 8), (32, 16), (64, 16)) for py in (1, 2)},
+    **{f"step{step}-seg{seg}": Copy(shape(step, seg))
+       for step, seg in ((8, 32), (8, 128), (12, 60), (14, 56), (16, 64))},
+    **{f"no-ahead-step{step}-seg{seg}": Copy(shape(step, seg) + NO_AHEAD)
+       for step, seg in ((8, 64), (16, 64), (20, 60), (20, 40))},
     "carveout-max": Copy(CARVEOUT),
-    "cp-async": Copy(CP_ASYNC),
-    **{f"{bx}x{by}-1px-cp-async": Copy(shape(bx, by, 1) + CP_ASYNC)
-       for bx, by in ((32, 8), (32, 16), (64, 16))},
-    "32x16-1px-no-load": Copy(shape(32, 16, 1) + NO_LOAD, outputs="timing"),
-    "32x16-1px-no-filter": Copy(shape(32, 16, 1) + NO_FILTER, outputs="timing"),
-    "32x16-1px-cp-async-no-filter": Copy(shape(32, 16, 1) + CP_ASYNC + NO_FILTER,
-                                         outputs="timing"),
-    "tile-tap-center": Copy(TILE_TAP, outputs="timing"),
-    "tile-fast-exp": Copy(FAST_EXP, outputs="timing"),
+    "isnan-clamps": Copy(ISNAN_CLAMPS),
+    "sync-fill": Copy(SYNC_FILL),
+    "ldg-fill": Copy(LDG_FILL),
+    "ring-tap-center": Copy(RING_TAP, outputs="timing"),
+    "ring-fast-exp": Copy(FAST_EXP, outputs="timing"),
+    "ring-no-load": Copy(NO_LOAD, outputs="timing"),
+    "ring-no-filter": Copy(NO_FILTER, outputs="timing"),
     "parent": Copy([], base="parent"),
     "parent-tap-center": Copy(PARENT_TAP, base="parent", outputs="timing"),
     "parent-sqrt-center": Copy(PARENT_SQRT, base="parent", outputs="timing"),
     "parent-fast-exp": Copy(FAST_EXP, base="parent", outputs="timing"),
+    "parent-min6": Copy(parent_min_blocks(6), base="parent"),
+    "parent-min8": Copy(parent_min_blocks(8), base="parent"),
 }
-BLOCKS = ((32, 8), (32, 16), (64, 16))
+BLOCKS = ((32, 8), (32, 16), (64, 16), (32, 64))
 
 
 def patched(src: str, patches: list) -> str:
@@ -199,16 +215,17 @@ def patched(src: str, patches: list) -> str:
 
 
 def tile_of(src: str) -> dict:
-    """The block shape, threads and dynamic shared bytes of a tile copy
+    """The block shape, threads and dynamic shared bytes of a ring copy
     (as the source computes them), and the blocks an SM holds by shared
     memory (228 KB, 1 KB reserved a block); {} for the parent's file."""
     m = SHAPE.search(src)
     if m is None:
         return {}
-    bx, by, py = map(int, m.groups())
-    words = (bx + 18) * (by + 18)
-    smem = 12 * 4 * (words + (11 - words % 32 + 32) % 32)
-    return dict(block=f"{bx}x{by}", pixels_a_thread=py, threads=bx * by // py, smem=smem,
+    bx, step, seg = map(int, m.groups())
+    ahead = AHEAD.search(src).group(1)
+    words = (step + 18 + (step if ahead == "STEP" else int(ahead))) * (bx + 18)
+    smem = 12 * 4 * words
+    return dict(block=f"{bx}x{seg}", step=step, threads=bx * step, smem=smem,
                 blocks_by_smem=233472 // (smem + 1024))
 
 
@@ -371,7 +388,7 @@ def main() -> int:
         print(f"ptxas {name}: " + "; ".join(
             f"{r['kernel']} {r['regs']} regs, {r['smem']} B static smem, spills "
             f"{r['spill_stores']}/{r['spill_loads']} B" for r in rows)
-            + (f"; block {tile['block']}, {tile['pixels_a_thread']} px a thread, "
+            + (f"; block {tile['block']}, steps of {tile['step']} rows, "
                f"{tile['threads']} threads, {tile['smem']} B dynamic smem, "
                f"{tile['blocks_by_smem']} blocks an SM by shared memory" if tile else ""))
 

@@ -790,10 +790,10 @@ def test_atrous_kernel_bit_exact(size, acase):
                  row_offset=17 if acase == "row offset 17" else 0)
 
 
-# A1's tile (the block's 32x16 pixels and a 9-px halo): images smaller
-# than the halo, exact multiples of the 32x8, 32x16 and 64x16 blocks, and
-# one more than a multiple in each axis.
-ATROUS_EDGE_SIZES = ((5, 300), (300, 5), (9, 9), (32, 128), (33, 129))
+# A1's ring (a block walks 64 rows of a 32-column strip in steps of 8,
+# with a 9-px halo): images smaller than the halo, exact multiples of the
+# block, one more than a multiple in each axis, and several blocks down.
+ATROUS_EDGE_SIZES = ((5, 300), (300, 5), (9, 9), (64, 128), (65, 129), (200, 96))
 
 
 @pytest.mark.parametrize("size", ATROUS_EDGE_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -810,23 +810,26 @@ def test_atrous_odd_shape_bit_exact(acase):
 
 
 def test_atrous_blocks_that_pass_through_beside_ones_that_filter():
-    """The left 64 columns at blur 0 and one 32x16 block of sky pass
-    through whole blocks; the rest filters."""
-    gb, _, color, state = _rt_case(32, 128)
+    """The left 64 columns at blur 0 and one 32x64 block of sky pass
+    through whole blocks, 8 sky rows a step of a block that filters; the
+    rest filters."""
+    gb, _, color, state = _rt_case(128, 128)
     counts = state.history_sample.clone()
     counts[:, :64] = 9.0  # 9 / 8 - 1 / 8 = 1: blur 0
     depth = gb.depth.clone()
-    depth[16:, 64:96] = 0.0
+    depth[64:, 64:96] = 0.0
+    depth[8:16, 96:] = 0.0
     gb = dataclasses.replace(gb, depth=depth)
     got = check_atrous(gb, color, counts)
     assert torch.equal(_bits(got[:, :64]), _bits(color[:, :64]))
-    assert torch.equal(_bits(got[16:, 64:96]), _bits(color[16:, 64:96]))
-    assert not torch.equal(got[:, 96:], color[:, 96:])
+    assert torch.equal(_bits(got[64:, 64:96]), _bits(color[64:, 64:96]))
+    assert torch.equal(_bits(got[8:16, 96:]), _bits(color[8:16, 96:]))
+    assert not torch.equal(got[16:, 96:], color[16:, 96:])
 
 
 def test_atrous_nan_and_inf_in_color_bit_exact():
-    """NaN and +-inf in the color reach the clamps through the tile, as
-    centers and as taps."""
+    """NaN and +-inf in the color, and NaN and -inf in the albedo, reach
+    the clamps through the ring, as centers and as taps."""
     gb, _, color, state = _rt_case(37, 53)
     color = color.clone()
     color[3, 5, 0] = float("nan")
@@ -834,7 +837,10 @@ def test_atrous_nan_and_inf_in_color_bit_exact():
     color[20, 30, 2] = -float("inf")
     color[30, 40] = float("nan")
     color[36, 52, 1] = float("inf")
-    check_atrous(gb, color, state.history_sample)
+    albedo = gb.albedo.clone()
+    albedo[12, 8, 1] = float("nan")
+    albedo[25, 44] = -float("inf")
+    check_atrous(dataclasses.replace(gb, albedo=albedo), color, state.history_sample)
 
 
 def test_atrous_two_streams_bit_exact():

@@ -28,36 +28,51 @@
 // differences), not a product of two operands, so tensor cores do not
 // apply.
 //
-// The design: a block of BX x BY pixels, PY of them a thread (rows BY / PY
-// apart, so a warp is 32 neighbouring pixels of one row), first fills a
-// shared tile of (BY + 18) x (BX + 18) texels: the block's pixels and a
-// 9-px halo. Tile column j holds image column clamp(x0 - 9 + j, 0, w - 1)
-// and tile row i image row clamp(y0 - 9 + i, 0, h - 1), for the block's
-// origin (x0, y0). A tap's coordinate is clamped to the image as before
-// and then offset by (9 - x0, 9 - y0). It always lands in the tile:
-// |dx r| <= 9, so x + dx r lies in [x0 - 9, x0 + BX + 8]; clamping moves
-// it only to 0 (which is >= x0 - 9 when x + dx r < 0) or to w - 1 (which
-// is >= x >= x0 and < x + dx r); and the tile column of a coordinate
-// already inside [0, w - 1] holds that very column, so the tile gives the
-// bits the global read gave. Each tile texel holds 12 f32, as channel
-// planes: color, emission, the effective normal and
+// The design: a block of THREADS = 32 x STEP threads walks down a strip
+// of BX = 32 columns, SEG rows long, STEP rows a step, one pixel a thread
+// a step (a warp is 32 neighbouring pixels of one row). Its taps read a
+// ring of rows in shared memory: the window of a step (its STEP rows and
+// the 9-px halo: virtual rows y0 - 9 .. y0 + STEP + 8 for a step at row
+// y0, each TW = BX + 18 texels wide) plus the next step's STEP new rows,
+// RING = 2 STEP + 18 rows in all; virtual row v sits in slot
+// (v - ys + 9) mod RING for the block's first row ys. Ring column j
+// holds image column clamp(x0 - 9 + j, 0, w - 1) for the strip's first
+// column x0, and virtual row v image row clamp(v, 0, h - 1). A tap's
+// coordinate is clamped to the image as before, then taken to its slot
+// and column. It is always in the step's window: |dx r|, |dy r| <= 9, so
+// x + dx r lies in [x0 - 9, x0 + BX + 8]; clamping moves it only to 0
+// (which is >= x0 - 9 when x + dx r < 0) or to w - 1 (which is >= x >=
+// x0 and < x + dx r), and likewise for rows; and the slot or column of
+// a coordinate already inside the image holds that very row or column,
+// so the ring gives the bits a global read gave. Each ring texel holds
+// 12 f32, as channel planes: color, emission, the effective normal and
 // sqrtf(max(albedo, 0)) of the effective albedo (under REFR the
 // transparent layer's where the texel is refractive and that layer is
 // non-zero). So the REFR select and the square root run once per texel,
-// at fill time, and not once per tap (each texel is a tap of ~9 pixels);
-// REFR adds no shared memory. The fill is coalesced: consecutive threads
-// take consecutive floats of a tile row's span of 3 (BX + 18) floats
-// (clamped only at the image's edges), each plane starts at a word
-// offset = 11 (mod 32) from the last, so a warp's stores to the three
-// planes of an image fall on distinct banks. Then each pixel reads its
-// center and its 9 taps from the tile; only its count, depth and (REFR)
-// transparent type come from device memory. A block whose pixels all pass
-// through (sky, blur 0: __syncthreads_or) skips the fill and copies its
-// color. One launch an iteration: an iteration reads its neighbours'
-// previous output up to 9 px away, so fusing iterations would need a halo
-// recomputed per iteration. The tile needs dynamic shared memory above
-// 48 KB: the entry point raises the kernel's limit before each launch.
+// when it arrives, and not once per tap (each texel is a tap of ~9
+// pixels); REFR adds no shared memory. Each plane starts at a word
+// offset = 11 (mod 32) from the last, so a warp's stores to an image's
+// three planes fall on distinct banks.
 //
+// The fill: cp.async copies of 4 bytes, consecutive threads on
+// consecutive floats of a row's span of 3 TW floats (clamped only at the
+// image's edges), so they coalesce. A step issues the copies of the next
+// step's rows before it filters and waits for them after: the copies fly
+// behind its taps. Each thread then takes the square root (and the REFR
+// select) of the floats it copied itself, so only the barrier at the
+// step's end orders the ring. A strip of SEG rows loads
+// (SEG + 18) / SEG x TW / BX = 2.0 texels a pixel from L2 (SEG 64); a
+// square tile of the block's pixels and its halo, fetched before its
+// taps, loaded 3.3 (32x16) and lost to the one-read-a-tap design it
+// replaced (PERF.md, PR 11). Only the pixel's count, depth and (REFR)
+// transparent type come from device memory. A block whose pixels all
+// pass through (sky, blur 0: __syncthreads_or) fetches nothing and
+// copies its color. One launch an iteration: an iteration reads its
+// neighbours' previous output up to 9 px away, so fusing iterations would
+// need a halo recomputed per iteration. The ring needs dynamic shared
+// memory above 48 KB: the entry point raises the kernel's limit before
+// each launch, and a refused launch returns its error.
+
 // Numerics: --fmad=false, IEEE divides and square roots, expf (no fast
 // math), and every expression in the order of the plain version: channel
 // sums (x*x + y*y) + z*z, the weight product left to right, the taps
@@ -71,17 +86,20 @@
 
 namespace {
 
-constexpr int BX = 32, BY = 16, PY = 2;
+constexpr int BX = 32, STEP = 8, SEG = 64;
 constexpr int HALO = 9;
-constexpr int TW = BX + 2 * HALO, TH = BY + 2 * HALO;
-// Words a plane takes: the tile, padded to 11 (mod 32).
-constexpr int PLANE = TW * TH + (11 - TW * TH % 32 + 32) % 32;
-constexpr int THREADS = BX * BY / PY;
+constexpr int TW = BX + 2 * HALO;
+// Ring rows: a step's window (its STEP rows and the halo above and
+// below) and the next step's AHEAD = STEP new rows.
+constexpr int AHEAD = STEP;
+constexpr int RING = STEP + 2 * HALO + AHEAD;
+constexpr int PLANE = RING * TW;  // words a plane takes
+constexpr int THREADS = BX * STEP;
 // Planes: color, emission, normal, sqrt-albedo, 3 channels each.
 constexpr int COLOR = 0, EMISSION = 3, NORMAL = 6, SQRT_ALBEDO = 9;
 constexpr size_t SMEM_BYTES = 12 * PLANE * sizeof(float);
 constexpr int SURFACE_TYPE_REFRACTION = 2;
-static_assert(BX % 32 == 0 && BY % PY == 0, "a warp is 32 pixels of one row");
+static_assert(BX % 32 == 0 && SEG % STEP == 0, "a warp is 32 pixels of one row");
 
 // The 3x3 Gaussian's weight of tap k (row-major, center 4).
 __host__ __device__ constexpr float tap_weight(int k) {
@@ -103,12 +121,21 @@ struct Args {
   float max_n, inv_n;
 };
 
-// torch.clamp's: NaN stays NaN.
-__device__ __forceinline__ float clamp_max(float x, float hi) { return isnan(x) ? x : fminf(x, hi); }
-__device__ __forceinline__ float clamp_min(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
-__device__ __forceinline__ float saturate(float x) {
-  return isnan(x) ? x : fminf(fmaxf(x, 0.0f), 1.0f);
+// torch.clamp's: NaN stays NaN (min.NaN / max.NaN, one instruction
+// each). They give the card's canonical NaN where torch.clamp keeps the
+// input's; every clamped value here is an arithmetic result, whose NaN is
+// already canonical, or goes on into one (the albedo's square root).
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(x), "f"(hi));
+  return d;
 }
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(x), "f"(lo));
+  return d;
+}
+__device__ __forceinline__ float saturate(float x) { return clamp_max(clamp_min(x, 0.0f), 1.0f); }
 
 __device__ __forceinline__ uint32_t jenkins(uint32_t x) {
   x += x << 10;
@@ -127,52 +154,73 @@ __device__ __forceinline__ float hashed_random_float(uint32_t x, uint32_t y, uin
 
 __device__ __forceinline__ float sum_sq(float a, float b, float c) { return a * a + b * b + c * c; }
 
-// Channel c of texel q of the transparent layer t where that texel is
-// refractive and the layer there is non-zero, else v.
-__device__ __forceinline__ float transparent_or(const float* t, int q, int c, float v) {
-  const float t0 = __ldg(t + 3 * q), t1 = __ldg(t + 3 * q + 1), t2 = __ldg(t + 3 * q + 2);
-  return t0 != 0.0f || t1 != 0.0f || t2 != 0.0f ? (c == 0 ? t0 : c == 1 ? t1 : t2) : v;
+// A 4-byte copy from device to shared memory that does not wait (cp.async).
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
 
-// The block's tile: every float of the (TH, TW) texels' color, emission,
-// effective normal and sqrt of the effective albedo, one float a thread
-// in turn, consecutive threads on consecutive floats of a tile row.
-template <bool REFR>
-__device__ __forceinline__ void fill_tile(const Args& a, float* tile, int x0, int y0) {
-  for (int e = threadIdx.x; e < TH * TW * 3; e += THREADS) {
-    const int i = e / (3 * TW);
-    const int f = e - i * (3 * TW);
-    const int j = f / 3, c = f - 3 * j;
-    const int gx = min(max(x0 - HALO + j, 0), a.w - 1);
-    const int gy = min(max(y0 - HALO + i, 0), a.h - 1);
-    const int q = gy * a.w + gx;
-    const int s = i * TW + j;
-    float n = __ldg(a.normal + 3 * q + c), al = __ldg(a.albedo + 3 * q + c);
-    if (REFR && __ldg(a.t_type + q) == SURFACE_TYPE_REFRACTION) {
-      n = transparent_or(a.t_normal, q, c, n);
-      al = transparent_or(a.t_albedo, q, c, al);
+// The ring slot of virtual row v (image row clamp(v, 0, h - 1)) of the
+// block whose first row is ys; v >= ys - HALO.
+__device__ __forceinline__ int slot(int v, int ys) { return (v - ys + HALO) % RING; }
+
+// The fill of `rows` virtual rows from v0 into the ring: warp i takes
+// rows i, i + STEP, ..., each lane the texels lane and lane + 32 of a row
+// (its 12 floats, one cp.async each, 32 consecutive words of a plane a
+// warp). FINISH waits for the copies the thread issued and takes the
+// square root (and the REFR select) of the texels it copied.
+template <bool REFR, bool FINISH>
+__device__ __forceinline__ void fill_rows(const Args& a, float* ring, int x0, int ys, int v0,
+                                          int rows) {
+  if (FINISH) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  for (int i = threadIdx.x / 32; i < rows; i += STEP) {
+    const int gy = min(max(v0 + i, 0), a.h - 1);
+    float* row = ring + slot(v0 + i, ys) * TW;
+    for (int j = threadIdx.x % 32; j < TW; j += 32) {
+      const int q = gy * a.w + min(max(x0 - HALO + j, 0), a.w - 1);
+      float* t = row + j;
+      if (!FINISH) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          copy4(t + (COLOR + c) * PLANE, a.color + 3 * q + c);
+          copy4(t + (EMISSION + c) * PLANE, a.emission + 3 * q + c);
+          copy4(t + (NORMAL + c) * PLANE, a.normal + 3 * q + c);
+          copy4(t + (SQRT_ALBEDO + c) * PLANE, a.albedo + 3 * q + c);
+        }
+      } else {
+        float al[3] = {t[SQRT_ALBEDO * PLANE], t[(SQRT_ALBEDO + 1) * PLANE],
+                       t[(SQRT_ALBEDO + 2) * PLANE]};
+        if (REFR && __ldg(a.t_type + q) == SURFACE_TYPE_REFRACTION) {
+          const float* tn = a.t_normal + 3 * q;
+          const float* ta = a.t_albedo + 3 * q;
+          if (__ldg(tn) != 0.0f || __ldg(tn + 1) != 0.0f || __ldg(tn + 2) != 0.0f) {
+            for (int c = 0; c < 3; ++c) t[(NORMAL + c) * PLANE] = __ldg(tn + c);
+          }
+          if (__ldg(ta) != 0.0f || __ldg(ta + 1) != 0.0f || __ldg(ta + 2) != 0.0f) {
+            for (int c = 0; c < 3; ++c) al[c] = __ldg(ta + c);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) t[(SQRT_ALBEDO + c) * PLANE] = sqrtf(clamp_min(al[c], 0.0f));
+      }
     }
-    tile[(COLOR + c) * PLANE + s] = __ldg(a.color + 3 * q + c);
-    tile[(EMISSION + c) * PLANE + s] = __ldg(a.emission + 3 * q + c);
-    tile[(NORMAL + c) * PLANE + s] = n;
-    tile[(SQRT_ALBEDO + c) * PLANE + s] = sqrtf(clamp_min(al, 0.0f));
   }
 }
 
-// Plane k's value at tile texel s.
-__device__ __forceinline__ float at(const float* tile, int k, int s) { return tile[k * PLANE + s]; }
+// Plane k's value at ring word s.
+__device__ __forceinline__ float at(const float* ring, int k, int s) { return ring[k * PLANE + s]; }
 
-// Pixel (x, y) at tile texel s0, filtered from the tile with the remapped
-// blur gate.
+// Pixel (x, y), whose ring word is s0, filtered from the ring of the
+// block at (x0, ys) with the remapped blur gate.
 template <bool REFR>
-__device__ __forceinline__ void filter_pixel(const Args& a, const float* tile, int x, int y,
-                                             int x0, int y0, int s0, float remapped) {
+__device__ __forceinline__ void filter_pixel(const Args& a, const float* ring, int x, int y,
+                                             int x0, int ys, int s0, float remapped) {
   const int p = y * a.w + x;
-  const float c[3] = {at(tile, COLOR, s0), at(tile, COLOR + 1, s0), at(tile, COLOR + 2, s0)};
-  const float cn[3] = {at(tile, NORMAL, s0), at(tile, NORMAL + 1, s0), at(tile, NORMAL + 2, s0)};
-  const float sa[3] = {at(tile, SQRT_ALBEDO, s0), at(tile, SQRT_ALBEDO + 1, s0),
-                       at(tile, SQRT_ALBEDO + 2, s0)};
-  float ce[3] = {at(tile, EMISSION, s0), at(tile, EMISSION + 1, s0), at(tile, EMISSION + 2, s0)};
+  const float c[3] = {at(ring, COLOR, s0), at(ring, COLOR + 1, s0), at(ring, COLOR + 2, s0)};
+  const float cn[3] = {at(ring, NORMAL, s0), at(ring, NORMAL + 1, s0), at(ring, NORMAL + 2, s0)};
+  const float sa[3] = {at(ring, SQRT_ALBEDO, s0), at(ring, SQRT_ALBEDO + 1, s0),
+                       at(ring, SQRT_ALBEDO + 2, s0)};
+  float ce[3] = {at(ring, EMISSION, s0), at(ring, EMISSION + 1, s0), at(ring, EMISSION + 2, s0)};
   const bool use_ew = !REFR || __ldg(a.t_type + p) != SURFACE_TYPE_REFRACTION;
   if (!use_ew) ce[0] = ce[1] = ce[2] = 0.0f;
   const uint32_t hy = static_cast<uint32_t>(y) + static_cast<uint32_t>(a.row_offset);
@@ -184,13 +232,13 @@ __device__ __forceinline__ void filter_pixel(const Args& a, const float* tile, i
     const int dx = k % 3 - 1, dy = k / 3 - 1;
     const int qx = min(max(x + dx * r, 0), a.w - 1);
     const int qy = min(max(y + dy * r, 0), a.h - 1);
-    const int s = (qy - y0 + HALO) * TW + (qx - x0 + HALO);
-    const float tc[3] = {at(tile, COLOR, s), at(tile, COLOR + 1, s), at(tile, COLOR + 2, s)};
-    const float te[3] = {at(tile, EMISSION, s), at(tile, EMISSION + 1, s),
-                         at(tile, EMISSION + 2, s)};
-    const float tn[3] = {at(tile, NORMAL, s), at(tile, NORMAL + 1, s), at(tile, NORMAL + 2, s)};
-    const float ta[3] = {at(tile, SQRT_ALBEDO, s), at(tile, SQRT_ALBEDO + 1, s),
-                         at(tile, SQRT_ALBEDO + 2, s)};
+    const int s = slot(qy, ys) * TW + (qx - x0 + HALO);
+    const float tc[3] = {at(ring, COLOR, s), at(ring, COLOR + 1, s), at(ring, COLOR + 2, s)};
+    const float te[3] = {at(ring, EMISSION, s), at(ring, EMISSION + 1, s),
+                         at(ring, EMISSION + 2, s)};
+    const float tn[3] = {at(ring, NORMAL, s), at(ring, NORMAL + 1, s), at(ring, NORMAL + 2, s)};
+    const float ta[3] = {at(ring, SQRT_ALBEDO, s), at(ring, SQRT_ALBEDO + 1, s),
+                         at(ring, SQRT_ALBEDO + 2, s)};
     const float cw = clamp_max(expf(-sum_sq(c[0] - tc[0], c[1] - tc[1], c[2] - tc[2]) * 1.1f), 1.0f);
     float ew = clamp_max(
         expf(-sum_sq(ce[0] - te[0], ce[1] - te[1], ce[2] - te[2]) * 2000.0f), 1.0f);
@@ -213,57 +261,67 @@ __device__ __forceinline__ void filter_pixel(const Args& a, const float* tile, i
   o[2] = c[2] + (sum2 / den - c[2]) * remapped;
 }
 
+// Pixel p's blur gate: 1 passes through (sky or blur 0), 2 filters; its
+// remapped gate in *remapped.
+__device__ __forceinline__ int pixel_state(const Args& a, int p, float* remapped) {
+  const float ratio = __ldg(a.count + p) / a.max_n;
+  const float blur = 1.0f - saturate(clamp_max(ratio, a.max_n) - a.inv_n);
+  float inv = 1.0f - blur;
+  inv = inv * inv;
+  inv = inv * inv;
+  *remapped = 1.0f - inv;
+  return __ldg(a.depth + p) == 0.0f || blur == 0.0f ? 1 : 2;
+}
+
 template <bool REFR>
 __global__ void __launch_bounds__(THREADS) atrous_kernel(Args a) {
-  extern __shared__ float tile[];
-  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * BY;
+  extern __shared__ float ring[];
+  const int x0 = blockIdx.x * BX, ys = blockIdx.y * SEG;
   const int lx = threadIdx.x % BX, ly = threadIdx.x / BX;
   const int x = x0 + lx;
-  // Per pixel of the thread: 0 out of the image, 1 passes through, 2 filters.
-  int state[PY];
-  float remapped[PY];
+  const int steps = min(SEG, a.h - ys + STEP - 1) / STEP;
   bool any = false;
-#pragma unroll
-  for (int k = 0; k < PY; ++k) {
-    const int y = y0 + ly + k * (BY / PY);
-    state[k] = 0;
-    remapped[k] = 0.0f;
-    if (x < a.w && y < a.h) {
-      const int p = y * a.w + x;
-      const float ratio = __ldg(a.count + p) / a.max_n;
-      const float blur = 1.0f - saturate(clamp_max(ratio, a.max_n) - a.inv_n);
-      state[k] = __ldg(a.depth + p) == 0.0f || blur == 0.0f ? 1 : 2;
-      float inv = 1.0f - blur;
-      inv = inv * inv;
-      inv = inv * inv;
-      remapped[k] = 1.0f - inv;
-      any = any || state[k] == 2;
-    }
+  for (int k = 0; k < steps; ++k) {
+    const int y = ys + k * STEP + ly;
+    float remapped;
+    any = any || (x < a.w && y < a.h && pixel_state(a, y * a.w + x, &remapped) == 2);
   }
-  const bool fill = __syncthreads_or(any);
-  if (fill) {
-    fill_tile<REFR>(a, tile, x0, y0);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < PY; ++k) {
-    const int y = y0 + ly + k * (BY / PY);
-    const int s0 = (ly + k * (BY / PY) + HALO) * TW + lx + HALO;
-    if (state[k] == 2) {
-      filter_pixel<REFR>(a, tile, x, y, x0, y0, s0, remapped[k]);
-    } else if (state[k] == 1) {
-      const size_t p = static_cast<size_t>(y) * a.w + x;
-      float* o = a.out + 3 * p;
-      if (fill) {
-        o[0] = at(tile, COLOR, s0);
-        o[1] = at(tile, COLOR + 1, s0);
-        o[2] = at(tile, COLOR + 2, s0);
-      } else {
-        o[0] = __ldg(a.color + 3 * p);
-        o[1] = __ldg(a.color + 3 * p + 1);
-        o[2] = __ldg(a.color + 3 * p + 2);
+  if (!__syncthreads_or(any)) {
+    for (int k = 0; k < steps; ++k) {
+      const size_t p = static_cast<size_t>(ys + k * STEP + ly) * a.w + x;
+      if (x < a.w && ys + k * STEP + ly < a.h) {
+        a.out[3 * p] = __ldg(a.color + 3 * p);
+        a.out[3 * p + 1] = __ldg(a.color + 3 * p + 1);
+        a.out[3 * p + 2] = __ldg(a.color + 3 * p + 2);
       }
     }
+    return;
+  }
+  // Step 0's window: virtual rows ys - HALO .. ys + STEP + HALO - 1.
+  fill_rows<REFR, false>(a, ring, x0, ys, ys - HALO, STEP + 2 * HALO);
+  fill_rows<REFR, true>(a, ring, x0, ys, ys - HALO, STEP + 2 * HALO);
+  __syncthreads();
+  for (int k = 0; k < steps; ++k) {
+    // The next step's new rows go to the slots of the rows this step no
+    // longer reads, while this step filters.
+    const int next = ys + (k + 1) * STEP + HALO;
+    if (k + 1 < steps) fill_rows<REFR, false>(a, ring, x0, ys, next, STEP);
+    const int y = ys + k * STEP + ly;
+    if (x < a.w && y < a.h) {
+      const int p = y * a.w + x;
+      const int s0 = slot(y, ys) * TW + lx + HALO;
+      float remapped;
+      if (pixel_state(a, p, &remapped) == 2) {
+        filter_pixel<REFR>(a, ring, x, y, x0, ys, s0, remapped);
+      } else {
+        float* o = a.out + 3 * static_cast<size_t>(p);
+        o[0] = at(ring, COLOR, s0);
+        o[1] = at(ring, COLOR + 1, s0);
+        o[2] = at(ring, COLOR + 2, s0);
+      }
+    }
+    if (k + 1 < steps) fill_rows<REFR, true>(a, ring, x0, ys, next, STEP);
+    __syncthreads();
   }
 }
 
@@ -272,7 +330,7 @@ int launch(const Args& a, cudaStream_t s) {
   const cudaError_t e = cudaFuncSetAttribute(
       atrous_kernel<REFR>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.w + BX - 1) / BX, (a.h + BY - 1) / BY);
+  const dim3 grid((a.w + BX - 1) / BX, (a.h + SEG - 1) / SEG);
   atrous_kernel<REFR><<<grid, THREADS, SMEM_BYTES, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
