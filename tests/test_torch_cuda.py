@@ -790,29 +790,28 @@ def test_atrous_kernel_bit_exact(size, acase):
                  row_offset=17 if acase == "row offset 17" else 0)
 
 
-# A1's ring (a block walks 64 rows of a 32-column strip in steps of 8,
-# with a 9-px halo): images smaller than the halo, exact multiples of the
-# block, one more than a multiple in each axis, and several blocks down.
-ATROUS_EDGE_SIZES = ((5, 300), (300, 5), (9, 9), (64, 128), (65, 129), (200, 96))
+# A1 at its edges: images smaller than the taps' 9-px reach, exact
+# multiples of its 32x8 block (and of the 32x16, 64x16 and 32x64 blocks of
+# the shared-memory designs scripts/atrous_ablation.py measures), one more
+# than a multiple in each axis, several blocks down, and refraction and
+# row_offset 17 on an odd shape.
+ATROUS_EDGE_CASES = (((5, 300), "plain"), ((300, 5), "plain"), ((9, 9), "plain"),
+                     ((64, 128), "plain"), ((65, 129), "plain"), ((200, 96), "plain"),
+                     ((33, 129), "refraction"), ((33, 129), "row offset 17"))
 
 
-@pytest.mark.parametrize("size", ATROUS_EDGE_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_atrous_tile_edges_bit_exact(size):
-    gb, _, color, state = _rt_case(*size)
-    check_atrous(gb, color, state.history_sample)
-
-
-@pytest.mark.parametrize("acase", ["refraction", "row offset 17"])
-def test_atrous_odd_shape_bit_exact(acase):
-    gb, _, color, state = _rt_case(33, 129, glass=acase == "refraction")
+@pytest.mark.parametrize("size,acase", ATROUS_EDGE_CASES,
+                         ids=[f"{h}x{w}-{c}" for (h, w), c in ATROUS_EDGE_CASES])
+def test_atrous_edges_bit_exact(size, acase):
+    gb, _, color, state = _rt_case(*size, glass=acase == "refraction")
     check_atrous(gb, color, state.history_sample, refr=acase == "refraction",
                  row_offset=17 if acase == "row offset 17" else 0)
 
 
 def test_atrous_blocks_that_pass_through_beside_ones_that_filter():
-    """The left 64 columns at blur 0 and one 32x64 block of sky pass
-    through whole blocks, 8 sky rows a step of a block that filters; the
-    rest filters."""
+    """The left 64 columns at blur 0, a 32x64 block of sky and 8 sky rows
+    pass through, whole blocks of every shape the ablation measures beside
+    blocks that filter; the rest filters."""
     gb, _, color, state = _rt_case(128, 128)
     counts = state.history_sample.clone()
     counts[:, :64] = 9.0  # 9 / 8 - 1 / 8 = 1: blur 0
@@ -829,7 +828,7 @@ def test_atrous_blocks_that_pass_through_beside_ones_that_filter():
 
 def test_atrous_nan_and_inf_in_color_bit_exact():
     """NaN and +-inf in the color, and NaN and -inf in the albedo, reach
-    the clamps through the ring, as centers and as taps."""
+    the clamps as centers and as taps."""
     gb, _, color, state = _rt_case(37, 53)
     color = color.clone()
     color[3, 5, 0] = float("nan")

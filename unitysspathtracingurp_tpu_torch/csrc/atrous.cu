@@ -21,85 +21,43 @@
 // What bounds it. Bytes: each pixel's color, emission, normal and albedo
 // (3 floats each), its count and depth read once, its color written once:
 // 68 B a pixel, 141 MB at 1080p, 0.042 ms at 3.35 TB/s (REFR adds the
-// transparent type, normal and albedo: 32 B). The arithmetic is ~560 f32
-// operations a filtered pixel (its 36 exp counted as one each), ~1.2
-// GFLOP at 1080p, 0.017 ms at the f32 rate: the bytes bound it. The
+// transparent type, normal and albedo: 32 B). The taps re-read
+// neighbours within 9 px; those reads hit L1 / L2. The arithmetic is
+// ~560 f32 operations a filtered pixel (its 36 exp counted as one each),
+// ~1.2 GFLOP at 1080p, 0.017 ms at the f32 rate: the bytes bound it. The
 // weights are per-pixel nonlinear functions of each tap (exp of squared
-// differences), not a product of two operands, so tensor cores do not
-// apply.
+// differences), not a product of two operands: tensor cores do not apply.
 //
-// The design: a block of THREADS = 32 x STEP threads walks down a strip
-// of BX = 32 columns, SEG rows long, STEP rows a step, one pixel a thread
-// a step (a warp is 32 neighbouring pixels of one row). Its taps read a
-// ring of rows in shared memory: the window of a step (its STEP rows and
-// the 9-px halo: virtual rows y0 - 9 .. y0 + STEP + 8 for a step at row
-// y0, each TW = BX + 18 texels wide) plus the next step's STEP new rows,
-// RING = 2 STEP + 18 rows in all; virtual row v sits in slot
-// (v - ys + 9) mod RING for the block's first row ys. Ring column j
-// holds image column clamp(x0 - 9 + j, 0, w - 1) for the strip's first
-// column x0, and virtual row v image row clamp(v, 0, h - 1). A tap's
-// coordinate is clamped to the image as before, then taken to its slot
-// and column. It is always in the step's window: |dx r|, |dy r| <= 9, so
-// x + dx r lies in [x0 - 9, x0 + BX + 8]; clamping moves it only to 0
-// (which is >= x0 - 9 when x + dx r < 0) or to w - 1 (which is >= x >=
-// x0 and < x + dx r), and likewise for rows; and the slot or column of
-// a coordinate already inside the image holds that very row or column,
-// so the ring gives the bits a global read gave. Each ring texel holds
-// 12 f32, as channel planes: color, emission, the effective normal and
-// sqrtf(max(albedo, 0)) of the effective albedo (under REFR the
-// transparent layer's where the texel is refractive and that layer is
-// non-zero). So the REFR select and the square root run once per texel,
-// when it arrives, and not once per tap (each texel is a tap of ~9
-// pixels); REFR adds no shared memory. Each plane starts at a word
-// offset = 11 (mod 32) from the last, so a warp's stores to an image's
-// three planes fall on distinct banks.
+// The design: one thread a pixel in 32 x 8 blocks, every read through
+// __ldg (read-only path, L1). Each pixel's taps sit at its own hashed
+// radius of 3-9 px, so a warp's load of a tap with dy != 0 lands on up to
+// seven rows. On the H100 that scatter is about a fifth of the kernel's
+// time, the 27 square roots of tap albedos a twentieth and expf against
+// __expf a fiftieth (scripts/atrous_ablation.py); the rest is the
+// arithmetic. Designs that read each texel once from shared memory (a
+// tile of the block's pixels and a 9-px halo; a ring of rows walked down
+// a 32-column strip with the next rows fetched by cp.async behind the
+// taps) were measured against this one on the same inputs and lost:
+// their fill costs more than the scatter it saves (the script's tile-*
+// and ring-* copies). The radius is hashed by each thread for itself in
+// uint32 arithmetic (the plain version's int64 with masks gives the same
+// bits). One launch an iteration: an iteration reads its neighbours'
+// previous output up to 9 px away, so iterations cannot fuse in one
+// launch without a halo exchange across blocks.
 //
-// The fill: cp.async copies of 4 bytes, consecutive threads on
-// consecutive floats of a row's span of 3 TW floats (clamped only at the
-// image's edges), so they coalesce. A step issues the copies of the next
-// step's rows before it filters and waits for them after: the copies fly
-// behind its taps. Each thread then takes the square root (and the REFR
-// select) of the floats it copied itself, so only the barrier at the
-// step's end orders the ring. A strip of SEG rows loads
-// (SEG + 18) / SEG x TW / BX = 2.0 texels a pixel from L2 (SEG 64); a
-// square tile of the block's pixels and its halo, fetched before its
-// taps, loaded 3.3 (32x16) and lost to the one-read-a-tap design it
-// replaced (PERF.md, PR 11). Only the pixel's count, depth and (REFR)
-// transparent type come from device memory. A block whose pixels all
-// pass through (sky, blur 0: __syncthreads_or) fetches nothing and
-// copies its color. One launch an iteration: an iteration reads its
-// neighbours' previous output up to 9 px away, so fusing iterations would
-// need a halo recomputed per iteration. The ring needs dynamic shared
-// memory above 48 KB: the entry point raises the kernel's limit before
-// each launch, and a refused launch returns its error.
-
 // Numerics: --fmad=false, IEEE divides and square roots, expf (no fast
 // math), and every expression in the order of the plain version: channel
 // sums (x*x + y*y) + z*z, the weight product left to right, the taps
-// summed in order from 0. Clamps propagate NaN as torch.clamp does. Only
-// where each value is read from, and when each square root is taken,
-// differ from a read per tap. Each output bit equals atrous_filter_ref's
-// on the card.
+// summed in order from 0. Clamps propagate NaN as torch.clamp does. Each
+// output bit equals atrous_filter_ref's on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BX = 32, STEP = 8, SEG = 64;
-constexpr int HALO = 9;
-constexpr int TW = BX + 2 * HALO;
-// Ring rows: a step's window (its STEP rows and the halo above and
-// below) and the next step's AHEAD = STEP new rows.
-constexpr int AHEAD = STEP;
-constexpr int RING = STEP + 2 * HALO + AHEAD;
-constexpr int PLANE = RING * TW;  // words a plane takes
-constexpr int THREADS = BX * STEP;
-// Planes: color, emission, normal, sqrt-albedo, 3 channels each.
-constexpr int COLOR = 0, EMISSION = 3, NORMAL = 6, SQRT_ALBEDO = 9;
-constexpr size_t SMEM_BYTES = 12 * PLANE * sizeof(float);
+constexpr int BX = 32, BY = 8;
 constexpr int SURFACE_TYPE_REFRACTION = 2;
-static_assert(BX % 32 == 0 && SEG % STEP == 0, "a warp is 32 pixels of one row");
 
 // The 3x3 Gaussian's weight of tap k (row-major, center 4).
 __host__ __device__ constexpr float tap_weight(int k) {
@@ -121,21 +79,12 @@ struct Args {
   float max_n, inv_n;
 };
 
-// torch.clamp's: NaN stays NaN (min.NaN / max.NaN, one instruction
-// each). They give the card's canonical NaN where torch.clamp keeps the
-// input's; every clamped value here is an arithmetic result, whose NaN is
-// already canonical, or goes on into one (the albedo's square root).
-__device__ __forceinline__ float clamp_max(float x, float hi) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(x), "f"(hi));
-  return d;
+// torch.clamp's: NaN stays NaN.
+__device__ __forceinline__ float clamp_max(float x, float hi) { return isnan(x) ? x : fminf(x, hi); }
+__device__ __forceinline__ float clamp_min(float x, float lo) { return isnan(x) ? x : fmaxf(x, lo); }
+__device__ __forceinline__ float saturate(float x) {
+  return isnan(x) ? x : fminf(fmaxf(x, 0.0f), 1.0f);
 }
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(x), "f"(lo));
-  return d;
-}
-__device__ __forceinline__ float saturate(float x) { return clamp_max(clamp_min(x, 0.0f), 1.0f); }
 
 __device__ __forceinline__ uint32_t jenkins(uint32_t x) {
   x += x << 10;
@@ -154,91 +103,77 @@ __device__ __forceinline__ float hashed_random_float(uint32_t x, uint32_t y, uin
 
 __device__ __forceinline__ float sum_sq(float a, float b, float c) { return a * a + b * b + c * c; }
 
-// A 4-byte copy from device to shared memory that does not wait (cp.async).
-__device__ __forceinline__ void copy4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+__device__ __forceinline__ void load3(const float* p, int i, float v[3]) {
+  v[0] = __ldg(p + 3 * i);
+  v[1] = __ldg(p + 3 * i + 1);
+  v[2] = __ldg(p + 3 * i + 2);
 }
 
-// The ring slot of virtual row v (image row clamp(v, 0, h - 1)) of the
-// block whose first row is ys; v >= ys - HALO.
-__device__ __forceinline__ int slot(int v, int ys) { return (v - ys + HALO) % RING; }
-
-// The fill of `rows` virtual rows from v0 into the ring: warp i takes
-// rows i, i + STEP, ..., each lane the texels lane and lane + 32 of a row
-// (its 12 floats, one cp.async each, 32 consecutive words of a plane a
-// warp). FINISH waits for the copies the thread issued and takes the
-// square root (and the REFR select) of the texels it copied.
-template <bool REFR, bool FINISH>
-__device__ __forceinline__ void fill_rows(const Args& a, float* ring, int x0, int ys, int v0,
-                                          int rows) {
-  if (FINISH) asm volatile("cp.async.wait_all;\n" ::: "memory");
-  for (int i = threadIdx.x / 32; i < rows; i += STEP) {
-    const int gy = min(max(v0 + i, 0), a.h - 1);
-    float* row = ring + slot(v0 + i, ys) * TW;
-    for (int j = threadIdx.x % 32; j < TW; j += 32) {
-      const int q = gy * a.w + min(max(x0 - HALO + j, 0), a.w - 1);
-      float* t = row + j;
-      if (!FINISH) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          copy4(t + (COLOR + c) * PLANE, a.color + 3 * q + c);
-          copy4(t + (EMISSION + c) * PLANE, a.emission + 3 * q + c);
-          copy4(t + (NORMAL + c) * PLANE, a.normal + 3 * q + c);
-          copy4(t + (SQRT_ALBEDO + c) * PLANE, a.albedo + 3 * q + c);
-        }
-      } else {
-        float al[3] = {t[SQRT_ALBEDO * PLANE], t[(SQRT_ALBEDO + 1) * PLANE],
-                       t[(SQRT_ALBEDO + 2) * PLANE]};
-        if (REFR && __ldg(a.t_type + q) == SURFACE_TYPE_REFRACTION) {
-          const float* tn = a.t_normal + 3 * q;
-          const float* ta = a.t_albedo + 3 * q;
-          if (__ldg(tn) != 0.0f || __ldg(tn + 1) != 0.0f || __ldg(tn + 2) != 0.0f) {
-            for (int c = 0; c < 3; ++c) t[(NORMAL + c) * PLANE] = __ldg(tn + c);
-          }
-          if (__ldg(ta) != 0.0f || __ldg(ta + 1) != 0.0f || __ldg(ta + 2) != 0.0f) {
-            for (int c = 0; c < 3; ++c) al[c] = __ldg(ta + c);
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < 3; ++c) t[(SQRT_ALBEDO + c) * PLANE] = sqrtf(clamp_min(al[c], 0.0f));
-      }
+// The normal and albedo guides of texel q.
+template <bool REFR>
+__device__ __forceinline__ void guides(const Args& a, int q, float n[3], float al[3]) {
+  load3(a.normal, q, n);
+  load3(a.albedo, q, al);
+  if (REFR && __ldg(a.t_type + q) == SURFACE_TYPE_REFRACTION) {
+    float t[3];
+    load3(a.t_normal, q, t);
+    if (t[0] != 0.0f || t[1] != 0.0f || t[2] != 0.0f) {
+      n[0] = t[0];
+      n[1] = t[1];
+      n[2] = t[2];
+    }
+    load3(a.t_albedo, q, t);
+    if (t[0] != 0.0f || t[1] != 0.0f || t[2] != 0.0f) {
+      al[0] = t[0];
+      al[1] = t[1];
+      al[2] = t[2];
     }
   }
 }
 
-// Plane k's value at ring word s.
-__device__ __forceinline__ float at(const float* ring, int k, int s) { return ring[k * PLANE + s]; }
-
-// Pixel (x, y), whose ring word is s0, filtered from the ring of the
-// block at (x0, ys) with the remapped blur gate.
 template <bool REFR>
-__device__ __forceinline__ void filter_pixel(const Args& a, const float* ring, int x, int y,
-                                             int x0, int ys, int s0, float remapped) {
+__global__ void __launch_bounds__(BX * BY) atrous_kernel(Args a) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= a.w || y >= a.h) return;
   const int p = y * a.w + x;
-  const float c[3] = {at(ring, COLOR, s0), at(ring, COLOR + 1, s0), at(ring, COLOR + 2, s0)};
-  const float cn[3] = {at(ring, NORMAL, s0), at(ring, NORMAL + 1, s0), at(ring, NORMAL + 2, s0)};
-  const float sa[3] = {at(ring, SQRT_ALBEDO, s0), at(ring, SQRT_ALBEDO + 1, s0),
-                       at(ring, SQRT_ALBEDO + 2, s0)};
-  float ce[3] = {at(ring, EMISSION, s0), at(ring, EMISSION + 1, s0), at(ring, EMISSION + 2, s0)};
-  const bool use_ew = !REFR || __ldg(a.t_type + p) != SURFACE_TYPE_REFRACTION;
-  if (!use_ew) ce[0] = ce[1] = ce[2] = 0.0f;
+  float c[3];
+  load3(a.color, p, c);
+  float* o = a.out + 3 * static_cast<size_t>(p);
+  const float ratio = __ldg(a.count + p) / a.max_n;
+  const float blur = 1.0f - saturate(clamp_max(ratio, a.max_n) - a.inv_n);
+  if (__ldg(a.depth + p) == 0.0f || blur == 0.0f) {
+    o[0] = c[0];
+    o[1] = c[1];
+    o[2] = c[2];
+    return;
+  }
+  float inv = 1.0f - blur;
+  inv = inv * inv;
+  inv = inv * inv;
+  const float remapped = 1.0f - inv;
   const uint32_t hy = static_cast<uint32_t>(y) + static_cast<uint32_t>(a.row_offset);
   const int r = static_cast<int>(floorf(3.0f + 6.0f * hashed_random_float(x, hy, 1u)));
 
-  float sum0 = 0.0f, sum1 = 0.0f, sum2 = 0.0f, sw = 0.0f;
+  float cn[3], ca[3], ce[3];
+  guides<REFR>(a, p, cn, ca);
+  const bool use_ew = !REFR || __ldg(a.t_type + p) != SURFACE_TYPE_REFRACTION;
+  load3(a.emission, p, ce);
+  if (!use_ew) ce[0] = ce[1] = ce[2] = 0.0f;
+  const float sa[3] = {sqrtf(clamp_min(ca[0], 0.0f)), sqrtf(clamp_min(ca[1], 0.0f)),
+                       sqrtf(clamp_min(ca[2], 0.0f))};
+
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, sw = 0.0f;
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     const int dx = k % 3 - 1, dy = k / 3 - 1;
     const int qx = min(max(x + dx * r, 0), a.w - 1);
     const int qy = min(max(y + dy * r, 0), a.h - 1);
-    const int s = slot(qy, ys) * TW + (qx - x0 + HALO);
-    const float tc[3] = {at(ring, COLOR, s), at(ring, COLOR + 1, s), at(ring, COLOR + 2, s)};
-    const float te[3] = {at(ring, EMISSION, s), at(ring, EMISSION + 1, s),
-                         at(ring, EMISSION + 2, s)};
-    const float tn[3] = {at(ring, NORMAL, s), at(ring, NORMAL + 1, s), at(ring, NORMAL + 2, s)};
-    const float ta[3] = {at(ring, SQRT_ALBEDO, s), at(ring, SQRT_ALBEDO + 1, s),
-                         at(ring, SQRT_ALBEDO + 2, s)};
+    const int q = qy * a.w + qx;
+    float tc[3], te[3], tn[3], ta[3];
+    load3(a.color, q, tc);
+    load3(a.emission, q, te);
+    guides<REFR>(a, q, tn, ta);
     const float cw = clamp_max(expf(-sum_sq(c[0] - tc[0], c[1] - tc[1], c[2] - tc[2]) * 1.1f), 1.0f);
     float ew = clamp_max(
         expf(-sum_sq(ce[0] - te[0], ce[1] - te[1], ce[2] - te[2]) * 2000.0f), 1.0f);
@@ -247,92 +182,20 @@ __device__ __forceinline__ void filter_pixel(const Args& a, const float* ring, i
         expf(-clamp_min(sum_sq(cn[0] - tn[0], cn[1] - tn[1], cn[2] - tn[2]), 0.0f) * 20.0f),
         1.0f);
     const float aw = clamp_max(
-        expf(-sum_sq(sa[0] - ta[0], sa[1] - ta[1], sa[2] - ta[2]) * 400.0f), 1.0f);
+        expf(-sum_sq(sa[0] - sqrtf(clamp_min(ta[0], 0.0f)), sa[1] - sqrtf(clamp_min(ta[1], 0.0f)),
+                     sa[2] - sqrtf(clamp_min(ta[2], 0.0f))) *
+             400.0f),
+        1.0f);
     const float wt = cw * ew * nw * aw * tap_weight(k);
-    sum0 = sum0 + tc[0] * wt;
-    sum1 = sum1 + tc[1] * wt;
-    sum2 = sum2 + tc[2] * wt;
+    s0 = s0 + tc[0] * wt;
+    s1 = s1 + tc[1] * wt;
+    s2 = s2 + tc[2] * wt;
     sw = sw + wt;
   }
   const float den = clamp_min(sw, 1e-12f);
-  float* o = a.out + 3 * static_cast<size_t>(p);
-  o[0] = c[0] + (sum0 / den - c[0]) * remapped;
-  o[1] = c[1] + (sum1 / den - c[1]) * remapped;
-  o[2] = c[2] + (sum2 / den - c[2]) * remapped;
-}
-
-// Pixel p's blur gate: 1 passes through (sky or blur 0), 2 filters; its
-// remapped gate in *remapped.
-__device__ __forceinline__ int pixel_state(const Args& a, int p, float* remapped) {
-  const float ratio = __ldg(a.count + p) / a.max_n;
-  const float blur = 1.0f - saturate(clamp_max(ratio, a.max_n) - a.inv_n);
-  float inv = 1.0f - blur;
-  inv = inv * inv;
-  inv = inv * inv;
-  *remapped = 1.0f - inv;
-  return __ldg(a.depth + p) == 0.0f || blur == 0.0f ? 1 : 2;
-}
-
-template <bool REFR>
-__global__ void __launch_bounds__(THREADS) atrous_kernel(Args a) {
-  extern __shared__ float ring[];
-  const int x0 = blockIdx.x * BX, ys = blockIdx.y * SEG;
-  const int lx = threadIdx.x % BX, ly = threadIdx.x / BX;
-  const int x = x0 + lx;
-  const int steps = min(SEG, a.h - ys + STEP - 1) / STEP;
-  bool any = false;
-  for (int k = 0; k < steps; ++k) {
-    const int y = ys + k * STEP + ly;
-    float remapped;
-    any = any || (x < a.w && y < a.h && pixel_state(a, y * a.w + x, &remapped) == 2);
-  }
-  if (!__syncthreads_or(any)) {
-    for (int k = 0; k < steps; ++k) {
-      const size_t p = static_cast<size_t>(ys + k * STEP + ly) * a.w + x;
-      if (x < a.w && ys + k * STEP + ly < a.h) {
-        a.out[3 * p] = __ldg(a.color + 3 * p);
-        a.out[3 * p + 1] = __ldg(a.color + 3 * p + 1);
-        a.out[3 * p + 2] = __ldg(a.color + 3 * p + 2);
-      }
-    }
-    return;
-  }
-  // Step 0's window: virtual rows ys - HALO .. ys + STEP + HALO - 1.
-  fill_rows<REFR, false>(a, ring, x0, ys, ys - HALO, STEP + 2 * HALO);
-  fill_rows<REFR, true>(a, ring, x0, ys, ys - HALO, STEP + 2 * HALO);
-  __syncthreads();
-  for (int k = 0; k < steps; ++k) {
-    // The next step's new rows go to the slots of the rows this step no
-    // longer reads, while this step filters.
-    const int next = ys + (k + 1) * STEP + HALO;
-    if (k + 1 < steps) fill_rows<REFR, false>(a, ring, x0, ys, next, STEP);
-    const int y = ys + k * STEP + ly;
-    if (x < a.w && y < a.h) {
-      const int p = y * a.w + x;
-      const int s0 = slot(y, ys) * TW + lx + HALO;
-      float remapped;
-      if (pixel_state(a, p, &remapped) == 2) {
-        filter_pixel<REFR>(a, ring, x, y, x0, ys, s0, remapped);
-      } else {
-        float* o = a.out + 3 * static_cast<size_t>(p);
-        o[0] = at(ring, COLOR, s0);
-        o[1] = at(ring, COLOR + 1, s0);
-        o[2] = at(ring, COLOR + 2, s0);
-      }
-    }
-    if (k + 1 < steps) fill_rows<REFR, true>(a, ring, x0, ys, next, STEP);
-    __syncthreads();
-  }
-}
-
-template <bool REFR>
-int launch(const Args& a, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      atrous_kernel<REFR>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.w + BX - 1) / BX, (a.h + SEG - 1) / SEG);
-  atrous_kernel<REFR><<<grid, THREADS, SMEM_BYTES, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  o[0] = c[0] + (s0 / den - c[0]) * remapped;
+  o[1] = c[1] + (s1 / den - c[1]) * remapped;
+  o[2] = c[2] + (s2 / den - c[2]) * remapped;
 }
 
 }  // namespace
@@ -348,7 +211,14 @@ extern "C" int sspt_atrous(const void* color, const void* emission, const void* 
                   static_cast<const int64_t*>(t_type), static_cast<const float*>(t_normal),
                   static_cast<const float*>(t_albedo), static_cast<float*>(out),
                   h, w, row_offset, max_n, inv_n};
-  if (h <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return refr ? launch<true>(a, s) : launch<false>(a, s);
+  if (h > 0 && w > 0) {
+    const dim3 grid((w + BX - 1) / BX, (h + BY - 1) / BY), block(BX, BY);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (refr) {
+      atrous_kernel<true><<<grid, block, 0, s>>>(a);
+    } else {
+      atrous_kernel<false><<<grid, block, 0, s>>>(a);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
