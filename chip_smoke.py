@@ -28,15 +28,22 @@ Phases (any failure exits non-zero and prints no result line):
      and 1080p on the classroom (noisy input, counts 0 / 1 / 5 / 8 / 9,
      a moved camera's history with an emission change and an off-screen
      band), A1 with row_offset 0 and 17 and on the glass box with
-     refraction, T1 with f32 and bf16 history and on the glass box;
+     refraction, T1 with f32 and bf16 history and on the glass box; S1
+     (the blue-noise and Sobol-Owen draws) against its plain version,
+     bit for bit, at 256^2 and 1080p: both modes, draw and draw2 after
+     an odd and an even counter, frames in epoch 0 and epoch 1, on the
+     pixel grid and on a compacted gather of it;
   4. one whole frame of each of the headline, dual, home, parity
-     headline, parity dual, spp-2 dithered headline and oct-normals +
-     forward-only headline, with the kernels against the plain path; the
+     headline, parity dual, spp-2 dithered headline, oct-normals +
+     forward-only headline, blue-noise and Sobol-Owen headlines and the
+     probe-lit headline (the three BoxScene probes), with the kernels
+     against the plain path; the
      home march against the non-home march at 1080p bounce 0 with 16
      rounds; the headline and dual frames with pallas_extract against
      the default frames, bit for bit; two real-time frames of (g) and (h)
      (below) through the kernels against the whole plain path, and the
-     adaptive-spp trace alone, bit for bit, at 256^2 and 1080p;
+     adaptive-spp trace alone, bit for bit, at 256^2 and 1080p; two
+     (g)-style TEMPORAL frames with blue noise at 256^2, bit for bit;
   5. the main paths, each with the launch counts set to 0 just before
      and read just after it: Renderer.render_frame, OFFLINE, 1920x1080,
      (a) the headline BoxScene with PTConfig.boxscene_headline(), (b)
@@ -50,9 +57,14 @@ Phases (any failure exits non-zero and prints no result line):
      1920x1080, 2 bounces, spp 1 adaptive to 4, hiz: (g) TEMPORAL with
      a static camera (8 K1, 8 R1 and 1 T1 launches a frame) and (h)
      SPATIAL_TEMPORAL at MEDIUM with the camera alternating between two
-     positions (the same and 3 A1); 1 warm-up + timed frames; each
-     followed by a torch.profiler report of two more frames (a report,
-     never a gate);
+     positions (the same and 3 A1); then (i) the headline with blue
+     noise and (j) with Sobol-Owen (4 K1, 4 R1 and 14 S1 launches a
+     frame: one a draw or draw2) and (k) the headline lit by the
+     BoxScene's box-projected probes (resolution 32, the two closest
+     bound by Renderer.bind_probes; 4 K1, 4 R1, no S1), with the probe
+     pass's device time on its own inputs; 1 warm-up + timed frames;
+     each followed by a torch.profiler report of two more frames (a
+     report, never a gate);
   6. a report, whose gates are the diagnostic march's launch counts,
      K3's and P1's bit identity and the golden regression: the
      diagnostic march (K2 + K3, counts set to 0 before and read after)
@@ -71,6 +83,11 @@ Phases (any failure exits non-zero and prints no result line):
      the 256^2 golden through P1 (512 frames, 1 bounce, pooled relative RMSE < 0.035 against
      fixtures/box256_golden_cpu.npz); the hiz-vs-parity deviation of the
      1080p headline and dual frames (128 frames each, common seeds);
+     frames-to-1% of the three samplers (scripts/convergence_study.py's
+     settings through P1 and S1 against fixtures/box256_golden.npz,
+     pooled 4x4; the curve every 64 frames beside
+     fixtures/convergence_r5.json's; a gate: pooled relative RMSE <=
+     0.0105 at the fixture's count, 2048 / 1472 / 832 frames);
 then one JSON line of per-kernel numbers, the card line again, and the
 last line {"ok": true, "device": {...}}.
 
@@ -150,6 +167,10 @@ KERNELS = {
         source="unitysspathtracingurp_tpu_torch/csrc/temporal.cu",
         replaces="unitysspathtracingurp_tpu/ops/temporal.py:165",
     ),
+    "sampler": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/sampler.cu",
+        replaces="unitysspathtracingurp_tpu/ops/rng.py:118, :238",
+    ),
 }
 # The kernels each path launches (the others must stay at 0 there).
 PATHS = {
@@ -163,6 +184,9 @@ PATHS = {
     "dither2": ("schedule_pack", "resolve_rounds"),
     "realtime": ("schedule_pack", "resolve_rounds", "temporal"),
     "spatial_temporal": ("schedule_pack", "resolve_rounds", "atrous", "temporal"),
+    "blue_noise": ("schedule_pack", "resolve_rounds", "sampler"),
+    "sobol_owen": ("schedule_pack", "resolve_rounds", "sampler"),
+    "probes": ("schedule_pack", "resolve_rounds"),
 }
 # The G-buffer P1's bound counts: 4 B a texel of each depth image in use.
 P1_LANE_IN = 12 + 12 + 12 + 4 + 4 + 4  # pos, dir, view dir, inside, dither, large step
@@ -211,18 +235,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, ops: float) -> dict:
+def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> dict:
     """The least time for the work: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    operations over their rate (f32 unless given), whichever is larger."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / ops_per_s
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the hiz march through the kernels' plain PyTorch versions."""
+    """Route the hiz march and the RNG's draws through the kernels' plain
+    PyTorch versions."""
     from unitysspathtracingurp_tpu_torch.ops import fused_schedule, pallas_gather, pathtrace_hiz
+    from unitysspathtracingurp_tpu_torch.ops import rng
 
     plain = {
         "schedule_pack": fused_schedule.schedule_pack_ref,
@@ -237,13 +263,16 @@ def plain_kernels():
     }
     names = tuple(plain)
     saved = [getattr(pathtrace_hiz, n) for n in names]
+    sampler = rng.sampler_draws
     for name, fn in plain.items():
         setattr(pathtrace_hiz, name, fn)
+    rng.sampler_draws = rng.sampler_draws_ref
     try:
         yield
     finally:
         for n, fn in zip(names, saved):
             setattr(pathtrace_hiz, n, fn)
+        rng.sampler_draws = sampler
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,6 +288,139 @@ def boxscene(h, w, dev, glass=False):
           else scene.build_box_scene())
     gb = fixtures.rasterize_gbuffers(sc, cam, h, w, device=dev, with_backface=glass)
     return gb, cam
+
+
+@functools.lru_cache(maxsize=None)
+def blue_noise_tables(dev):
+    """The port's committed blue-noise tables on the card (loaded, never
+    regenerated)."""
+    from unitysspathtracingurp_tpu_torch.ops.blue_noise import BlueNoiseTables
+
+    return BlueNoiseTables(device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def box_probe_list(dev, resolution=32):
+    """The BoxScene's three box-projected probes, baked once (host numpy)."""
+    from unitysspathtracingurp_tpu_torch.models import fixtures
+
+    return fixtures.bake_box_scene_probes(resolution=resolution, device=dev)
+
+
+S1_TABLE_BYTES = (256 * 256 + 2 * 131072) * 4
+
+
+def s1_sass() -> dict:
+    """{"<mode>,<count>,<first & 1>": must-run SASS mix} of S1's six
+    instances (kernels.build.sass_must_run), printed with the pipe that
+    bounds each. Raises without cuobjdump: S1's bound is counted from its
+    SASS."""
+    from unitysspathtracingurp_tpu_torch.kernels.build import (
+        library_sass_must_run, sass_lane_clocks,
+    )
+
+    sass = {k[len("sampler_kernel<"):-1]: v for k, v in library_sass_must_run().items()
+            if k.startswith("sampler_kernel<")}
+    gate(len(sass) == 6, f"S1's six instances in the library's SASS (found {sorted(sass)})")
+    for key, v in sorted(sass.items()):
+        clocks, pipe = sass_lane_clocks(v["must_run"])
+        print(f"phase 3 S1 SASS sampler_kernel<{key}> (mode, count, first odd): "
+              f"{v['static']} instructions, {v['must_run']} on every storing lane's path; "
+              f"{clocks:.4f} SM clocks a lane, bound by {pipe}")
+    return sass
+
+
+def s1_bound(lanes: int, mode: int, first: int, count: int, sass: dict) -> dict:
+    """S1's bound: two int64 coordinates in and ``count`` floats out a
+    lane (and the tables once in blue-noise mode) over the memory rate,
+    or the instance's must-run SASS over the busiest of its pipes and
+    the issue slots (whole warps) at the highest SM clock."""
+    from unitysspathtracingurp_tpu_torch.kernels.build import sass_lane_clocks
+    from unitysspathtracingurp_tpu_torch.ops import rng
+
+    odd = first & 1 if mode == rng.SOBOL_OWEN else 0
+    clocks, _ = sass_lane_clocks(sass[f"{mode},{count},{odd}"]["must_run"])
+    table = S1_TABLE_BYTES if mode == rng.BLUE_NOISE else 0
+    t_bytes = (lanes * (16 + 4 * count) + table) / HBM_BYTES_PER_S
+    t_ops = -(-lanes // 32) * 32 * clocks / (132 * SPIN_CYCLES_PER_S)
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_sampler(h, w, dev, timing: bool):
+    """Phase 3: S1 against its plain version, bit for bit: both modes,
+    draw and draw2 through the RNG after the counters 0, 1, 6 and 7 (a
+    Sobol draw2 rounds an odd counter up), frames in epoch 0 and epoch 1
+    (the blue-noise rotation on), on the pixel grid and on a compacted
+    gather of 40% of its lanes in a random order; a Sobol-Owen draw2 also
+    from an even first, called directly. At 1080p also its SASS and its
+    times on the frame's bounce-0 draws (the pixel grid)."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import rng
+
+    tables = blue_noise_tables(dev)
+    grid = rng.make_rng(h, w, 0, dev, sobol_owen=True)
+    n = h * w
+    keep = n * 2 // 5 // 128 * 128
+    idx = torch.randperm(n, generator=torch.Generator().manual_seed(11))[:keep].to(dev)
+    lanes = {"uncompacted": (grid.pix_x, grid.pix_y),
+             "compacted": tuple(t.reshape(-1)[idx].reshape(-1, 128)
+                                for t in (grid.pix_x, grid.pix_y))}
+    modes = ((rng.BLUE_NOISE, {"tables": tables}), (rng.SOBOL_OWEN, {"sobol_owen": True}))
+    frames = (33 * 77, 33 * 300)
+    cases, equal_all, err = 0, True, 0.0
+    for mode, kw in modes:
+        for fi in frames:
+            for px, py in lanes.values():
+                for counter in (0, 1, 6, 7):
+                    for count, fn in ((1, rng.draw), (2, rng.draw2)):
+                        got, after = fn(rng.RNG(pix_x=px, pix_y=py, frame_index=fi,
+                                                seed=counter, **kw))
+                        first = after.seed - count + 1
+                        ref = rng.sampler_draws_ref(px, py, fi, first, count, mode, tables)
+                        torch.cuda.synchronize()
+                        cases += 1
+                        equal_all = equal_all and bits_equal(got, ref)
+                        err = max(err, (got - ref).abs().max().item())
+                if mode == rng.SOBOL_OWEN:
+                    # The RNG's draw2 starts at an odd first; from an even
+                    # one (a direct call) it straddles two pairs.
+                    for first in (2, 6):
+                        got = rng.sampler_draws(px, py, fi, first, 2, mode)
+                        ref = rng.sampler_draws_ref(px, py, fi, first, 2, mode)
+                        torch.cuda.synchronize()
+                        cases += 1
+                        equal_all = equal_all and bits_equal(got, ref)
+                        err = max(err, (got - ref).abs().max().item())
+    print(f"phase 3 S1 sampler {w}x{h}: {cases} cases (blue noise and Sobol-Owen x draw and "
+          f"draw2 after counters 0 / 1 / 6 / 7, and Sobol-Owen draw2 from first 2 / 6, x "
+          f"frames {frames[0]} (epoch 0) and {frames[1]} (epoch 1) x {n} uncompacted and "
+          f"{keep} compacted lanes) all equal {equal_all}, max abs err {err:.3e}")
+    gate(equal_all, f"S1 bit-exact against its plain version ({w}x{h})")
+    out = {"sampler": {"max_abs_err": err}}
+    if timing:
+        sass = s1_sass()
+        fi = frames[1]
+        px, py = lanes["uncompacted"]
+        cpx, cpy = lanes["compacted"]
+        for label, mode, first, count, (x, y) in (
+                ("blue noise draw2", rng.BLUE_NOISE, 1, 2, (px, py)),
+                ("blue noise draw", rng.BLUE_NOISE, 3, 1, (px, py)),
+                ("Sobol-Owen draw", rng.SOBOL_OWEN, 3, 1, (px, py)),
+                ("Sobol-Owen draw, component 1", rng.SOBOL_OWEN, 2, 1, (px, py)),
+                ("Sobol-Owen draw2, compacted 40%", rng.SOBOL_OWEN, 5, 2, (cpx, cpy)),
+                ("Sobol-Owen draw2", rng.SOBOL_OWEN, 1, 2, (px, py))):
+            args = (x, y, fi, first, count, mode, tables)
+            o = dict(s1_bound(x.numel(), mode, first, count, sass), max_abs_err=err)
+            o["ms"] = cuda_ms(lambda: rng.sampler_draws(*args), 20)
+            o["plain_ms"] = cuda_ms(lambda: rng.sampler_draws_ref(*args), 3)
+            print(f"phase 3 S1 {label} {w}x{h} ({x.numel()} lanes, frame {fi}, draws from "
+                  f"{first}): {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}; "
+                  f"share {o['bound_ms'] / o['ms']:.3f}), plain PyTorch {o['plain_ms']:.4f} ms, "
+                  f"library none")
+        out["sampler"] = o  # the kernels line: a Sobol-Owen draw2 on the pixel grid
+    return out
 
 
 def march_inputs(gb, cam):
@@ -1373,6 +1535,74 @@ def golden_gate(dev, card, frames=512):
     gate(bool(rel < 0.035), f"golden regression through P1: pooled relative RMSE {rel:.5f}")
 
 
+# scripts/convergence_study.py's frames-to-1% of the JAX package
+# (fixtures/convergence_r5.json): each mode's fixture count.
+CONVERGENCE_MODES = (("hashed_random", 2048), ("blue_noise", 1472), ("sobol_owen", 832))
+CONVERGENCE_GATE = 0.0105
+
+
+def convergence_report(dev, card):
+    """Phase 6: frames-to-1% of the three samplers with
+    scripts/convergence_study.py's settings: BoxScene 256^2 without the
+    mirror, 1 bounce, 24 steps, no dither, PTConfig(), a zero constant
+    probe, the parity march (P1; S1 for the draws), frame index 33 (i +
+    1); the 4x4-pooled relative RMSE over opaque cells against
+    fixtures/box256_golden.npz every 64 frames, beside the fixture's
+    curve. Gate: <= 0.0105 at each mode's fixture count."""
+    import math
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.config import NoiseMethod, PTConfig, PTSettings
+    from unitysspathtracingurp_tpu_torch.models import fixtures, scene
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+    from unitysspathtracingurp_tpu_torch.utils.metrics import relative_rmse
+
+    root = Path(__file__).resolve().parent / "fixtures"
+    r = 256
+
+    def pool(x):
+        return x.reshape(r // 4, 4, r // 4, 4, 3).mean((1, 3))
+
+    golden = pool(np.load(root / "box256_golden.npz")["image"])
+    fixture = json.loads((root / "convergence_r5.json").read_text())
+    cam = fixtures.box_scene_camera(r, r, device=dev)
+    gb = fixtures.rasterize_gbuffers(scene.build_box_scene(with_mirror=False), cam, r, r,
+                                     device=dev)
+    pmask = gb.depth.cpu().numpy().reshape(r // 4, 4, r // 4, 4).min((1, 3)) > 0
+    probes = ProbeSet(probe0=constant_probe([0.0, 0.0, 0.0], device=dev))
+    for name, count in CONVERGENCE_MODES:
+        s = PTSettings(maximum_depth=1, samples_per_pixel=1, maximum_steps=24, dithering=False,
+                       noise_method=NoiseMethod[name.upper()])
+        tables = blue_noise_tables(dev) if s.variants().blue_noise else None
+        t0 = time.perf_counter()
+        acc = torch.zeros((r, r, 3), dtype=torch.float64, device=dev)
+        curve = []
+        for i in range(count):
+            acc += pt.trace_frame(gb, cam, probes, s, PTConfig(), s.variants(),
+                                  33 * (i + 1) % 64000, march_fn=pt.ray_march, rng_tables=tables)
+            if (i + 1) % 64 == 0 or i + 1 == count:
+                img = (acc / (i + 1)).cpu().numpy()
+                curve.append((i + 1, float(relative_rmse(pool(img), golden, pmask))))
+        secs = time.perf_counter() - t0
+        ref = {int(n): v for n, v in fixture[name]["curve"]}
+        reached = next((n for n, v in curve if v <= 0.01), None)
+        last = curve[-1][1]
+        print(f"phase 6 convergence {name}: {count} frames at {r}x{r}, 1 bounce, through P1"
+              f"{' and S1' if name != 'hashed_random' else ''} against "
+              f"fixtures/box256_golden.npz: pooled relative RMSE {last:.5f} (fixture "
+              f"{ref.get(count, math.nan):.5f}; gate <= {CONVERGENCE_GATE}), frames-to-1% "
+              f"{reached} (fixture {fixture[name]['frames_to_1pct_pooled']}), {secs:.1f} s "
+              f"[{card}]")
+        print(f"phase 6 convergence {name} curve (frames: port / fixture): " + ", ".join(
+            f"{n}: {v:.5f} / {ref.get(n, math.nan):.5f}" for n, v in curve))
+        gate(bool(last <= CONVERGENCE_GATE),
+             f"{name} pooled relative RMSE {last:.5f} at {count} frames")
+
+
 def deviation(img, ref, depth) -> str:
     """The metrics of scripts/quality_headline.py:90-125: pooled (4x4) and
     per-pixel relative RMSE over pixels with opaque depth, the mean
@@ -1457,8 +1687,9 @@ def home_config(**kw):
 def path_config(path: str):
     """(settings, cfg, back_depth_enabled, glass) of a main path (or of a
     phase-4 frame: "octfwd", the headline with oct-encoded normals and
-    forward-only objects)."""
-    from unitysspathtracingurp_tpu_torch.config import PTConfig
+    forward-only objects). "probes" is the headline's settings (its
+    probes come from ``path_probes``)."""
+    from unitysspathtracingurp_tpu_torch.config import NoiseMethod, PTConfig
 
     if path in ("dual", "parity_dual"):
         s = dual_settings(maximum_samples=512)
@@ -1474,6 +1705,9 @@ def path_config(path: str):
     if path == "octfwd":
         return (dataclasses.replace(headline_settings(), gbuffer_normals_oct=True,
                                     ignore_forward_objects=True),
+                PTConfig.boxscene_headline(), 0, False)
+    if path in ("blue_noise", "sobol_owen"):
+        return (dataclasses.replace(headline_settings(), noise_method=NoiseMethod[path.upper()]),
                 PTConfig.boxscene_headline(), 0, False)
     return headline_settings(), PTConfig.boxscene_headline(), 0, False
 
@@ -1498,31 +1732,44 @@ def path_scene(path: str, h, w, dev):
     return gb, cam
 
 
+def path_probes(path: str, dev):
+    """The probes of a path: the BoxScene's two probes closest to the
+    camera on "probes", the constant probe elsewhere."""
+    from unitysspathtracingurp_tpu_torch.models import fixtures
+    from unitysspathtracingurp_tpu_torch.models.probes import closest_probes
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+
+    if path == "probes":
+        return closest_probes(box_probe_list(dev), fixtures.BOX_PROBE_POSITIONS,
+                              (0.0, 1.8, 6.5), device=dev)
+    return ProbeSet(probe0=constant_probe(PROBE, device=dev))
+
+
 def trace_path(path: str, gb, cam, probes, frame_index, plain=False, tiles=None):
     """One pass-0 frame of ``path`` on the kernels, or with ``plain`` on
-    their plain PyTorch versions."""
+    their plain PyTorch versions (the draws' too)."""
     from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
     from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import trace_frame_hiz
 
     s, cfg, bde, _ = path_config(path)
-    if path_kernel(path) == "xla":
-        return pt.trace_frame(gb, cam, probes, s, cfg, s.variants(), frame_index,
-                              march_fn=pt.ray_march_ref if plain else pt.ray_march,
-                              back_depth_enabled=bde)
+    tables = blue_noise_tables(gb.device) if s.variants().blue_noise else None
     with plain_kernels() if plain else contextlib.nullcontext():
+        if path_kernel(path) == "xla":
+            return pt.trace_frame(gb, cam, probes, s, cfg, s.variants(), frame_index,
+                                  march_fn=pt.ray_march_ref if plain else pt.ray_march,
+                                  back_depth_enabled=bde, rng_tables=tables)
         return trace_frame_hiz(gb, cam, probes, s, cfg, s.variants(), frame_index,
-                               back_depth_enabled=bde, tiles=tiles)
+                               back_depth_enabled=bde, tiles=tiles, rng_tables=tables)
 
 
 def check_frame(h, w, dev, path: str):
     """Phase 4: one frame, kernels vs the plain path."""
     import torch
 
-    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
     from unitysspathtracingurp_tpu_torch.utils.metrics import frame_agreement
 
     gb, cam = path_scene(path, h, w, dev)
-    probes = ProbeSet(probe0=constant_probe(PROBE, device=dev))
+    probes = path_probes(path, dev)
     fast = trace_path(path, gb, cam, probes, 99)
     plain = trace_path(path, gb, cam, probes, 99, plain=True)
     torch.cuda.synchronize()
@@ -1597,7 +1844,7 @@ def realtime_frames(path: str, h, w, dev):
     import torch
 
     gb0, cam0 = classroom(h, w, dev, 0.0, 0.05)
-    if path == "realtime":
+    if path in ("realtime", "realtime_blue"):
         return [(dataclasses.replace(gb0, motion=torch.zeros_like(gb0.motion)), cam0)]
     return [(gb0, cam0), classroom(h, w, dev, 0.05, 0.0)]
 
@@ -1605,12 +1852,15 @@ def realtime_frames(path: str, h, w, dev):
 def realtime_settings(path: str):
     """The classroom cell (scripts/bench_suite.py:169-213): 2 bounces, spp
     1 (adaptive to 4), 24 steps, no dither; TEMPORAL on (g),
-    SPATIAL_TEMPORAL at MEDIUM (3 À-Trous passes) on (h)."""
-    from unitysspathtracingurp_tpu_torch.config import DenoiserType, PTSettings
+    SPATIAL_TEMPORAL at MEDIUM (3 À-Trous passes) on (h); "realtime_blue"
+    is (g) with blue noise."""
+    from unitysspathtracingurp_tpu_torch.config import DenoiserType, NoiseMethod, PTSettings
 
-    mode = DenoiserType.TEMPORAL if path == "realtime" else DenoiserType.SPATIAL_TEMPORAL
+    mode = (DenoiserType.TEMPORAL if path in ("realtime", "realtime_blue")
+            else DenoiserType.SPATIAL_TEMPORAL)
+    noise = NoiseMethod.BLUE_NOISE if path == "realtime_blue" else NoiseMethod.HASHED_RANDOM
     return PTSettings(maximum_depth=2, samples_per_pixel=1, maximum_steps=24,
-                      denoiser=mode, dithering=False)
+                      denoiser=mode, dithering=False, noise_method=noise)
 
 
 def realtime_renderer(path: str, h, w, dev):
@@ -1892,6 +2142,10 @@ PATH_NAMES = {
     "dither2": "headline, spp 2, step dithering (hiz)",
     "realtime": "(g) classroom_realtime (TEMPORAL, static camera)",
     "spatial_temporal": "(h) classroom_spatial_temporal (SPATIAL_TEMPORAL, moving camera)",
+    "realtime_blue": "(g) with blue noise (TEMPORAL, static camera)",
+    "blue_noise": "(i) blue-noise headline (hiz, S1)",
+    "sobol_owen": "(j) Sobol-Owen headline (hiz, S1)",
+    "probes": "(k) probe-lit headline (BoxScene probes, resolution 32, hiz)",
 }
 
 
@@ -1901,6 +2155,7 @@ def main_path(dev, card, path: str):
     import torch
 
     from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
+    from unitysspathtracingurp_tpu_torch.models import fixtures
     from unitysspathtracingurp_tpu_torch.models.renderer import Renderer
     from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
     from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import default_rounds
@@ -1911,6 +2166,10 @@ def main_path(dev, card, path: str):
     r = Renderer(s, H_FULL, W_FULL, cfg=cfg,
                  probes=ProbeSet(probe0=constant_probe(PROBE, device=dev)),
                  kernel=path_kernel(path), device=dev)
+    if path == "probes":
+        r.bind_probes(box_probe_list(dev), fixtures.BOX_PROBE_POSITIONS, cam)
+        gate(r.probes.probe1 is not None and float(r.probes.blend_weight) > 0.0,
+             "the two closest probes bound")
     # Launches per frame: each march kernel once per bounce and sample;
     # the home prefix runs on bounce 0 only, the plain front half on the
     # others; the unfused rounds launch K5 and K7 once per round.
@@ -1921,6 +2180,11 @@ def main_path(dev, card, path: str):
     if path == "extract":
         rounds = bounces * default_rounds(H_FULL, W_FULL)
         expect.update(extract_chain=rounds, rowwise_select=rounds)
+    if "sampler" in PATHS[path]:
+        # One S1 launch a draw or draw2: bounce 0's BRDF draw2 and lobe
+        # roulette, then each bounce's draw2, lobe roulette and Russian
+        # roulette (and the step dither's draw).
+        expect["sampler"] = (2 + 3 * bounces) * s.samples_per_pixel + int(s.dithering)
     LAUNCHES.clear()
     per_frame = []
     image = r.render_frame(gb, cam)  # warm-up: builds the depth tiles
@@ -1949,13 +2213,49 @@ def main_path(dev, card, path: str):
           f"{s.maximum_depth} bounces: {dt * 1e3:.3f} ms/frame (min {min(times) * 1e3:.3f}, "
           f"max {max(times) * 1e3:.3f}), {rate:.3f} Mrays/s, "
           f"samples {r.sample}, launches {launches} [{card}]")
-    profile_frames(lambda: r.render_frame(gb, cam), card, f"{name} main-path")
+    busy = profile_frames(lambda: r.render_frame(gb, cam), card, f"{name} main-path")
+    if path == "probes":
+        probe_pass_report(r, gb, cam, card, busy)
     return launches
+
+
+def probe_pass_report(r, gb, cam, card, busy_ms):
+    """Phase 5 (k): the probe pass's device time a frame. One more frame
+    records the inputs of every ``sample_reflection_probes`` call (bounce
+    0's BRDF and each bounce's, on the compacted lanes), then each call
+    is timed on its own inputs (CUDA events) and the times summed, beside
+    the path's device busy from the profile."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+
+    calls = []
+    real = pt.sample_reflection_probes
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    pt.sample_reflection_probes = spy
+    try:
+        r.render_frame(gb, cam)
+        torch.cuda.synchronize()
+    finally:
+        pt.sample_reflection_probes = real
+    times = [cuda_ms(lambda a=a, k=k: real(*a, **k), 10) for a, k in calls]
+    total = sum(times)
+    share = "n/a" if not busy_ms else f"{100.0 * total / busy_ms:.2f}%"
+    print(f"phase 5 (k) probe pass: {len(calls)} calls a frame ("
+          + ", ".join(f"{a[1].shape[:-1].numel()} lanes {t:.4f} ms" for (a, _), t in
+                      zip(calls, times))
+          + f"), {total:.4f} ms a frame of device time, {share} of the path's device busy "
+          f"({busy_ms if busy_ms else float('nan'):.3f} ms/frame, profile) [{card}]")
 
 
 def profile_frames(frame, card, name, frames=2):
     """Device time by kernel over ``frames`` more calls of ``frame`` (one
-    frame each; torch.profiler, CUPTI). Reports; never fails the smoke."""
+    frame each; torch.profiler, CUPTI). Reports; never fails the smoke.
+    Returns the device busy ms a frame (None where the profiler failed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1974,11 +2274,11 @@ def profile_frames(frame, card, name, frames=2):
         rows = [(t, c, key) for key, (t, c) in by_name.items()]
     except Exception as e:  # the profiler is a report, not a gate
         print(f"profile: torch.profiler failed: {e!r}")
-        return
+        return None
     busy = sum(t for t, _, _ in rows)
     if busy == 0:
         print("profile: torch.profiler saw no device time")
-        return
+        return None
     launches = sum(c for _, c, _ in rows)
     print(f"profile of {frames} {name} frames: wall {wall_us / frames / 1e3:.3f} "
           f"ms/frame, device busy {busy / frames / 1e3:.3f} ms/frame "
@@ -1996,6 +2296,7 @@ def profile_frames(frame, card, name, frames=2):
         print(f"profile:   hand kernels {t_hand / frames / 1e3:.3f} ms/frame "
               f"({100.0 * t_hand / busy:.1f}%): " + ", ".join(
                   f"{name} x{c // frames} {t / frames / 1e3:.3f}" for name, c, t in hand))
+    return busy / frames / 1e3
 
 
 def main() -> int:
@@ -2044,8 +2345,11 @@ def main() -> int:
     check_dither_kernels(dev)
     for h, w in ((256, 256), (H_FULL, W_FULL)):
         stats.update(check_realtime_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        stats.update(check_sampler(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     mark("phase 3")
-    for path in ("headline", "dual", "home", "parity", "parity_dual", "dither2", "octfwd"):
+    for path in ("headline", "dual", "home", "parity", "parity_dual", "dither2", "octfwd",
+                 "blue_noise", "sobol_owen", "probes"):
         for h, w in ((256, 256), (H_FULL, W_FULL)):
             check_frame(h, w, dev, path)
     check_home_march(dev)
@@ -2056,9 +2360,11 @@ def main() -> int:
         for path in ("realtime", "spatial_temporal"):
             check_realtime_frame(h, w, dev, path)
         check_adaptive_trace(h, w, dev)
+    check_realtime_frame(256, 256, dev, "realtime_blue")
     mark("phase 4")
     launches = {}
-    for path in ("headline", "dual", "home", "extract", "parity", "parity_dual", "dither2"):
+    for path in ("headline", "dual", "home", "extract", "parity", "parity_dual", "dither2",
+                 "blue_noise", "sobol_owen", "probes"):
         counts = main_path(dev, card, path)
         for name in PATHS[path]:
             launches.setdefault(name, counts.get(name, 0))
@@ -2074,6 +2380,7 @@ def main() -> int:
     parity_report(dev, card)
     golden_gate(dev, card)
     deviation_report(dev, card)
+    convergence_report(dev, card)
     mark("phase 6")
 
     rows = [

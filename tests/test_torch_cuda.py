@@ -1,7 +1,8 @@
 """The CUDA kernels (K1, R1, K4, R1's dual mode, K6, K2, K3, R1's
-state-in form, K5, K7, P1 (the parity march), A1 (À-Trous) and T1
-(temporal reprojection)) against their plain PyTorch versions, and the
-unfused resolve rounds (K5 + K7) against R1, on the card.
+state-in form, K5, K7, P1 (the parity march), A1 (À-Trous), T1
+(temporal reprojection) and S1 (the blue-noise and Sobol-Owen draws))
+against their plain PyTorch versions, the unfused resolve rounds (K5 +
+K7) against R1, and probe sampling against the CPU, on the card.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device. On a
 machine with an NVIDIA GPU (no JAX needed):
@@ -10,7 +11,8 @@ machine with an NVIDIA GPU (no JAX needed):
 
 Tolerance: bit-exact. Kernel and plain version run the same f32
 operation chain (the kernels build with --fmad=false, divides are IEEE)
-on the same device.
+on the same device. Probe sampling on the card against the CPU: 1 ulp
+(torch's elementwise kernels on two devices).
 """
 
 import dataclasses
@@ -925,3 +927,100 @@ def test_temporal_two_streams_bit_exact():
     for g, r in zip(got, refs):
         assert torch.equal(_bits(g.color), _bits(r.color))
         assert torch.equal(_bits(g.sample_count), _bits(r.sample_count))
+
+
+# ---------------------------------------------------------------- S1 (sampler)
+
+
+@pytest.fixture(scope="module")
+def sampler_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from unitysspathtracingurp_tpu_torch.ops.blue_noise import BlueNoiseTables
+
+    return torch.device("cuda", 0), BlueNoiseTables(device=torch.device("cuda", 0))
+
+
+def _sampler_lanes(dev, lanes: str):
+    """Pixel coordinates: a 200x300 grid, a compacted gather of 40% of it
+    in a random order ((ch, 128) lanes), one lane, and a lane count that
+    is no multiple of the 256-thread block."""
+    from unitysspathtracingurp_tpu_torch.ops.rng import make_rng
+
+    rng = make_rng(200, 300, 0, dev, sobol_owen=True)
+    if lanes == "grid":
+        return rng.pix_x, rng.pix_y
+    if lanes == "compacted":
+        g = torch.Generator().manual_seed(11)
+        idx = torch.randperm(200 * 300, generator=g)[:24064].to(dev)
+        return (rng.pix_x.reshape(-1)[idx].reshape(188, 128),
+                rng.pix_y.reshape(-1)[idx].reshape(188, 128))
+    n = 1 if lanes == "one" else 256 * 7 + 93
+    return rng.pix_x.reshape(-1)[-n:], rng.pix_y.reshape(-1)[-n:]
+
+
+@pytest.mark.parametrize("lanes", ["grid", "compacted", "one", "ragged"])
+@pytest.mark.parametrize("frame_index", [33 * 77, 33 * 300])  # epoch 0, epoch 1
+@pytest.mark.parametrize("first,count", [(1, 1), (4, 1), (3, 2), (6, 2), (1, 2)])
+@pytest.mark.parametrize("mode", ["blue_noise", "sobol_owen"])
+def test_sampler_kernel_bit_exact(sampler_case, mode, first, count, frame_index, lanes):
+    """S1 against its plain version on the same lanes: draw and draw2,
+    the counter odd and even ahead of the first draw (a Sobol draw2 is
+    one pair from an odd ``first``; an even one straddles two pairs)."""
+    from unitysspathtracingurp_tpu_torch.ops import rng
+
+    dev, tables = sampler_case
+    m = rng.BLUE_NOISE if mode == "blue_noise" else rng.SOBOL_OWEN
+    px, py = _sampler_lanes(dev, lanes)
+    before = LAUNCHES["sampler"]
+    got = rng.sampler_draws(px, py, frame_index, first, count, m, tables)
+    assert LAUNCHES["sampler"] == before + 1
+    want = rng.sampler_draws_ref(px, py, frame_index, first, count, m, tables)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == px.shape + ((2,) if count == 2 else ())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool(((got >= 0.0) & (got < 1.0)).all())
+
+
+def test_sampler_draw_stream_through_the_rng(sampler_case):
+    """draw / draw2 through the RNG in both modes on the card equal the
+    same stream on the CPU (the plain version), 12 draws with the counter
+    odd and even before each draw2."""
+    from unitysspathtracingurp_tpu_torch.ops import rng
+
+    dev, tables = sampler_case
+    cpu_tables = type(tables)(device="cpu")
+    for kw, cpu_kw in (({"tables": tables}, {"tables": cpu_tables}),
+                       ({"sobol_owen": True}, {"sobol_owen": True})):
+        a = rng.make_rng(37, 53, 33 * 400, dev, **kw)
+        b = rng.make_rng(37, 53, 33 * 400, "cpu", **cpu_kw)
+        for step in (1, 2, 1, 1, 2, 2, 1, 2):
+            fn = rng.draw if step == 1 else rng.draw2
+            (va, a), (vb, b) = fn(a), fn(b)
+            assert torch.equal(va.cpu().view(torch.int32), vb.view(torch.int32))
+            assert a.seed == b.seed
+
+
+def test_probe_sampling_on_the_card_within_an_ulp(sampler_case):
+    """The full probe path (box projection, mips, the blend, damping) on
+    the card against the CPU plain path, within 1 ulp."""
+    from unitysspathtracingurp_tpu_torch.ops import envprobe
+
+    dev, _ = sampler_case
+    probes = fixtures.box_scene_probes(resolution=16, device="cpu")
+    probes.is_probe_camera = torch.tensor(1.0)
+    g = torch.Generator().manual_seed(3)
+    d = torch.randn(20000, 3, generator=g)
+    d[:500, 0] = 0.0
+    d = d / d.norm(dim=-1, keepdim=True)
+    pos = torch.rand(20000, 3, generator=g) * torch.tensor([5.0, 3.6, 5.0]) - torch.tensor(
+        [2.5, -0.2, 2.5])
+    for mip in (1.0, 0.5):
+        want = envprobe.sample_reflection_probes(probes, d, pos, mip_level=mip)
+        got = envprobe.sample_reflection_probes(probes.to(dev), d.to(dev), pos.to(dev),
+                                                mip_level=mip).cpu()
+        ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= 1
+    mips = envprobe.build_probe_mips(probes.probe0.texture.to(dev))
+    for a, b in zip(mips, probes.probe0.mips):
+        assert torch.equal(a.cpu(), b)

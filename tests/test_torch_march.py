@@ -45,12 +45,13 @@ import pytest
 import torch
 
 from unitysspathtracingurp_tpu.camera import linear_eye_depth, pixel_uv, world_from_uv_depth
-from unitysspathtracingurp_tpu.config import DenoiserType, PTConfig, PTSettings
+from unitysspathtracingurp_tpu.config import DenoiserType, NoiseMethod, PTConfig, PTSettings
 from unitysspathtracingurp_tpu.models import fixtures, scene
 from unitysspathtracingurp_tpu.ops import pathtrace_hiz
 from unitysspathtracingurp_tpu.ops.accumulate import add_convergence_cue, offline_accumulate
 from unitysspathtracingurp_tpu.ops.accumulate import OfflineAccumState
 from unitysspathtracingurp_tpu.ops.depth_tiles import build_depth_tiles
+from unitysspathtracingurp_tpu.ops.blue_noise import BlueNoiseTables
 from unitysspathtracingurp_tpu.ops.envprobe import ProbeSet, constant_probe
 
 from unitysspathtracingurp_tpu_torch import convert
@@ -68,6 +69,7 @@ torch.set_num_threads(1)
 MH, MW = 64, 128  # march lanes
 FH = FW = 64  # frame
 PROBE = [0.05, 0.06, 0.08]
+BLUE_FRAME = 33 * 300  # epoch 1: the blue-noise rotation is on
 
 
 def _np_tree(obj):
@@ -264,9 +266,15 @@ def hiz_variant_frames(frame_case):
     dither_frame = pathtrace_hiz.trace_frame_hiz(
         gb, cam, probes, dithered, PTConfig.boxscene_headline(), dithered.variants(),
         jnp.uint32(5))
+    blue = PTSettings(maximum_depth=1, maximum_steps=24, dithering=False,
+                      noise_method=NoiseMethod.BLUE_NOISE)
+    blue_frame = pathtrace_hiz.trace_frame_hiz(
+        gb, cam, probes, blue, PTConfig.boxscene_headline(), blue.variants(),
+        jnp.uint32(BLUE_FRAME), rng_tables=BlueNoiseTables())
     return dict(samples=samples, dithered=np.asarray(dither_frame),
                 rounds=convert.pt_config(rounds), unclamped=convert.pt_settings(unclamped),
-                dithered_settings=convert.pt_settings(dithered))
+                dithered_settings=convert.pt_settings(dithered),
+                blue=np.asarray(blue_frame), blue_settings=convert.pt_settings(blue))
 
 
 @pytest.mark.parametrize("spp", [2, 3])
@@ -299,3 +307,17 @@ def test_hiz_dithering_with_caps_matches_jax(frame_case, hiz_variant_frames):
     out = tpathtrace_hiz.trace_frame_hiz(c["gb"], c["cam"], c["probes"], s, c["cfg"],
                                          s.variants(), 5)
     _assert_frame_close(out.numpy(), v["dithered"], c["non_sky"])
+
+
+def test_hiz_blue_noise_frame_matches_jax(frame_case, hiz_variant_frames):
+    """A blue-noise hiz frame (K1 / R1 plain versions; S1's plain
+    version draws from the port's committed tables) in epoch 1, with the
+    headline caps, against the JAX frame on its own tables."""
+    from unitysspathtracingurp_tpu_torch.ops.blue_noise import BlueNoiseTables as TTables
+
+    c, v = frame_case, hiz_variant_frames
+    s = v["blue_settings"]
+    out = tpathtrace_hiz.trace_frame_hiz(c["gb"], c["cam"], c["probes"], s, c["cfg"],
+                                         s.variants(), BLUE_FRAME,
+                                         rng_tables=TTables(device="cpu"))
+    _assert_frame_close(out.numpy(), v["blue"], c["non_sky"])

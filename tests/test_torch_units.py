@@ -34,6 +34,7 @@ from unitysspathtracingurp_tpu.ops import accumulate as jaccum
 from unitysspathtracingurp_tpu.ops import brdf as jbrdf
 from unitysspathtracingurp_tpu.ops import depth_tiles as jtiles
 from unitysspathtracingurp_tpu.ops import envprobe as jenv
+from unitysspathtracingurp_tpu.ops import blue_noise as jblue
 from unitysspathtracingurp_tpu.ops import rng as jrng
 from unitysspathtracingurp_tpu.ops.pathtrace import _compact_indices
 from unitysspathtracingurp_tpu.utils import image as jimage
@@ -48,6 +49,7 @@ from unitysspathtracingurp_tpu_torch.models import fixtures as tfixtures
 from unitysspathtracingurp_tpu_torch.models import scene as tscene
 from unitysspathtracingurp_tpu_torch.models.renderer import Renderer
 from unitysspathtracingurp_tpu_torch.ops import accumulate as taccum
+from unitysspathtracingurp_tpu_torch.ops import blue_noise as tblue
 from unitysspathtracingurp_tpu_torch.ops import brdf as tbrdf
 from unitysspathtracingurp_tpu_torch.ops import depth_tiles as ttiles
 from unitysspathtracingurp_tpu_torch.ops import envprobe as tenv
@@ -138,16 +140,30 @@ def test_settings_validate_ranges(field, value):
     ({}, {"ignore_forward_objects": True, "denoiser": tconfig.DenoiserType.TEMPORAL,
           "noise_method": tconfig.NoiseMethod.SOBOL_OWEN}),
 ])
-def test_unported_knobs_raise(cfg_kw, settings_kw):
-    """Unported settings raise, also beside the ported resolve knobs and
-    beside ported variants (oct normals, forward-only objects, the
-    real-time modes)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfig.PTSettings(**settings_kw).variants().check_supported()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(tconfig.PTSettings(**settings_kw), 16, 16, cfg=tconfig.PTConfig(**cfg_kw),
-                 device="cpu")
+def test_sampler_settings_build_like_jax(cfg_kw, settings_kw):
+    """The samplers, beside the resolve knobs and the other variants
+    (oct normals, forward-only objects, the real-time modes): the
+    variants equal the JAX package's, and the Renderer builds, with its
+    blue-noise tables in that mode."""
+    settings = tconfig.PTSettings(**settings_kw)
+    jsettings = jconfig.PTSettings(**{
+        k: (getattr(jconfig, type(v).__name__)(v.value) if hasattr(v, "value") else v)
+        for k, v in settings_kw.items()})
+    assert dataclasses.asdict(settings.variants()) == dataclasses.asdict(jsettings.variants())
+    r = Renderer(settings, 16, 16, cfg=tconfig.PTConfig(**cfg_kw), device="cpu")
+    blue = settings.noise_method == tconfig.NoiseMethod.BLUE_NOISE
+    assert (r.rng_tables is not None) == blue
+    if blue:
+        assert r.rng_tables.sobol.device.type == "cpu"
 
+
+@pytest.mark.parametrize("kw,item", [({"display_size": (32, 32)}, "item 13"),
+                                     ({"mesh": object()}, "item 14")])
+def test_unported_knobs_raise(kw, item):
+    """What is still unported raises, naming its ROADMAP item: render-scale
+    upscaling and the sharded frame."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+        Renderer(tconfig.PTSettings(), 16, 16, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw,raises,match", [
@@ -320,10 +336,14 @@ def test_envprobe_matches_jax():
         tenv.sample_reflection_probes(tp, T(d), T(d)).numpy(),
         np.asarray(jenv.sample_reflection_probes(jp, J(d), J(d))),
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenv.sample_reflection_probes(
-            tenv.ProbeSet(probe0=tenv.constant_probe([1, 1, 1], resolution=4, device="cpu")), T(d), T(d)
-        )
+    # A resolution-4 probe: the oct lookup and its bilinear read.
+    tex = RS.uniform(0.0, 2.0, (4, 4, 3)).astype(np.float32)
+    jp4 = jenv.ProbeSet(probe0=jenv.constant_probe([1, 1, 1], resolution=4).replace(
+        texture=J(tex)))
+    tp4 = convert.probe_set(np_tree(jp4.probe0), device="cpu")
+    np.testing.assert_allclose(tenv.sample_reflection_probes(tp4, T(d), T(d)).numpy(),
+                               np.asarray(jenv.sample_reflection_probes(jp4, J(d), J(d))),
+                               rtol=0, atol=2e-6)
 
 
 # ---------------------------------------------------------------- depth tiles
@@ -417,6 +437,8 @@ _KERNEL_CALLS = {
         _meta(6, 128, dt=_I), _meta(18)),
     "atrous": lambda: atrous_filter(
         _meta(4, 4, 3), _meta_gbuffers(), _meta(4, 4, 3), _meta(4, 4), tconfig.PTConfig()),
+    "sampler": lambda: trng.sampler_draws(
+        _meta(8, dt=torch.int64), _meta(8, dt=torch.int64), 99, 1, 2, trng.SOBOL_OWEN),
     "temporal": lambda: temporal_reproject(
         _meta(4, 4, 3), _meta_gbuffers(), _meta_camera(),
         ttemporal.TemporalState.create(4, 4, _meta_camera(), device="meta"), _meta(4, 4, 3),
@@ -451,6 +473,45 @@ def test_cuda_tensor_without_kernel_raises(monkeypatch, kernel):
             _KERNEL_CALLS[kernel]()
     finally:
         build.load_library.cache_clear()
+
+
+_SASS_LISTING = """
+\t\tFunction : _ZN12_GLOBAL__N_114sampler_kernelILi1ELi2ELi1EEEvPKlS2_PKiS4_S4_Pfxjj
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+                                                                           /* 0x000fe20000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;                      /* 0x0000000000007919 */
+        /*0020*/                   ISETP.GE.U32.AND P0, PT, R0, UR4, PT ;  /* 0x0000000000007919 */
+        /*0030*/               @P0 EXIT ;                                  /* 0x0000000000007919 */
+        /*0040*/                   IMAD.MOV.U32 R2, RZ, RZ, R0 ;           /* 0x0000000000007919 */
+        /*0050*/                   ISETP.NE.AND P1, PT, R2, RZ, PT ;       /* 0x0000000000007919 */
+        /*0060*/              @!P1 BRA 0xa0 ;                              /* 0x0000000000007919 */
+        /*0070*/                   BREV R3, R2 ;                           /* 0x0000000000007919 */
+        /*0080*/                   LOP3.LUT R3, R3, R2, RZ, 0x3c, !PT ;    /* 0x0000000000007919 */
+        /*0090*/                   IMAD R3, R3, 0x3, RZ ;                  /* 0x0000000000007919 */
+        /*00a0*/                   I2F.U32 R4, R3 ;                        /* 0x0000000000007919 */
+        /*00b0*/                   FMUL R4, R4, 5.9604644775390625e-08 ;   /* 0x0000000000007919 */
+        /*00c0*/                   STG.E [R6.64], R4 ;                     /* 0x0000000000007919 */
+        /*00d0*/                   EXIT ;                                  /* 0x0000000000007919 */
+        /*00e0*/                   BRA 0xe0;                               /* 0x0000000000007919 */
+        /*00f0*/                   NOP;                                    /* 0x0000000000007919 */
+"""
+
+
+def test_sass_must_run_counts_the_blocks_that_dominate_the_store():
+    """S1's bound reads its SASS: the code a branch can skip (0x70-0x90)
+    and the padding after the last EXIT are left out, predicated exits
+    and branches fall through, and each instruction lands on its pipe."""
+    from unitysspathtracingurp_tpu_torch.kernels.build import sass_lane_clocks, sass_must_run
+
+    got = sass_must_run(_SASS_LISTING)
+    assert list(got) == ["sampler_kernel<1,2,1>"]
+    v = got["sampler_kernel<1,2,1>"]
+    assert v["static"] == 16
+    assert v["must_run"] == {"issue": 11, "alu": 2, "imad": 1, "xu": 1, "fp32": 1}
+    assert sass_lane_clocks(v["must_run"]) == (11 / 128, "issue")
+    assert sass_lane_clocks({"issue": 40, "alu": 30, "imad": 5}) == (30 / 64, "alu")
+    assert sass_lane_clocks({"issue": 20, "xu": 8}) == (8 / 16, "xu")
+    assert sass_lane_clocks({"issue": 90, "imad": 40, "fp32": 60}) == (100 / 128, "fma")
 
 
 @pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.uint8])
@@ -555,9 +616,33 @@ def test_trace_frame_hiz_tuple_rounds(small_scene):
         gb, cam, probes, s, tconfig.PTConfig(), s.variants(), 33, n_rounds=r)
     assert torch.equal(run(3), run((3,)))
     assert not torch.equal(run(3), run((3, 0)))
-    blue = tconfig.PTSettings(noise_method=tconfig.NoiseMethod.BLUE_NOISE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trace_frame_hiz(gb, cam, probes, blue, tconfig.PTConfig(), blue.variants(), 33)
+    # Blue noise: the same, and the frame's first draws are the JAX
+    # package's stream (the whole blue-noise hiz frame is held against
+    # JAX in tests/test_torch_march.py, whose process has compiled the
+    # JAX hiz march).
+    blue = dataclasses.replace(s, noise_method=tconfig.NoiseMethod.BLUE_NOISE)
+    tables = tblue.BlueNoiseTables(device="cpu")
+    calls = []
+    real = trng.sampler_draws
+
+    def spy(*args):
+        calls.append((args, real(*args)))
+        return calls[-1][1]
+
+    trng.sampler_draws = spy
+    try:
+        bn = trace_frame_hiz(gb, cam, probes, blue, tconfig.PTConfig(), blue.variants(),
+                             33 * 300, n_rounds=(3,), rng_tables=tables)
+    finally:
+        trng.sampler_draws = real
+    assert torch.equal(bn, trace_frame_hiz(gb, cam, probes, blue, tconfig.PTConfig(),
+                                           blue.variants(), 33 * 300, n_rounds=3,
+                                           rng_tables=tables))
+    assert len(calls) == 2 + 3 * s.maximum_depth  # one launch a draw or draw2
+    jr = jrng.make_rng(32, 32, 33 * 300, jblue.BlueNoiseTables())
+    for args, got in calls[:2]:  # bounce 0's draw2 and roulette, on the pixel grid
+        jv, jr = (jrng.draw2 if args[4] == 2 else jrng.draw)(jr)
+        assert np.array_equal(got.numpy(), np.asarray(jv))
 
 
 def test_convert_state_and_unported_layers(box):

@@ -10,11 +10,10 @@ rounds unfused, as the JAX package writes them, each round through
 kernels K5 (``extract_chain``) and K7 (``rowwise_select``) around a row
 gather, instead of kernel R1; the rows are the same bit for bit.
 
-Behaviour knobs whose code paths are not ported yet stay as fields, so a
-configuration carries over field by field, but ``PTVariants.
-check_supported`` (and the entry points, for settings) raises
-``NotImplementedError`` naming the ROADMAP item that ports them instead
-of silently running something else.
+Every variant axis is ported. The Renderer's arguments whose code paths are not
+ported yet (``display_size``, ``mesh``) raise ``NotImplementedError``
+naming the ROADMAP item that ports them instead of silently running
+something else.
 """
 
 from __future__ import annotations
@@ -119,13 +118,6 @@ class PTVariants:
     backface_textures: bool = False
     ignore_forward_objects: bool = False
     gbuffer_normals_oct: bool = False
-
-    def check_supported(self) -> "PTVariants":
-        if self.blue_noise or self.sobol_owen:
-            raise NotImplementedError(
-                "blue-noise / Sobol-Owen samplers: ROADMAP Queue 1 item 11"
-            )
-        return self
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,7 @@ from . import config as tconfig
 from .camera import Camera
 from .gbuffer import GBuffers
 from .ops.accumulate import OfflineAccumState
+from .ops.blue_noise import BlueNoiseTables
 from .ops.depth_tiles import DepthTiles, DualDepthTiles
 from .ops.envprobe import EnvProbe, ProbeSet
 
@@ -130,3 +131,10 @@ def pt_settings(settings) -> tconfig.PTSettings:
 
 def pt_variants(variants) -> tconfig.PTVariants:
     return tconfig.PTVariants(**_fields(variants, tconfig.PTVariants))
+
+
+def blue_noise_tables(tables: dict, device="cuda") -> BlueNoiseTables:
+    """The JAX ``BlueNoiseTables``' leaves (``sobol``, ``ranking``,
+    ``scrambling``: uint32 values in [0, 256)) as the port's int32 tables."""
+    return BlueNoiseTables({k: np.asarray(tables[k]) for k in ("sobol", "ranking", "scrambling")},
+                           device=device)

@@ -176,7 +176,6 @@ def hit_surface_from_gbuffer(gb: GBuffers, uv, inside_object, variants: PTVarian
     The transparent path runs under refraction when the G-buffer has a
     transparent layer; ``back_depth_enabled == 2`` (DepthNormals) lets
     rays inside an object take the backface normal."""
-    variants.check_supported()
     if direct:
         fetch = lambda img: img  # noqa: E731
     else:

@@ -151,7 +151,6 @@ def hit_surface_from_packed(pgb: PackedGBuffers, uv, inside_object,
     """HitSurfaceDataFromGBuffer over the packed words: one 4-word fetch,
     plus one 2-word transparent fetch and one backface-normal word under
     refraction."""
-    variants.check_supported()
     h, w = pgb.height, pgb.width
     if direct:
         fetch = lambda img: img  # noqa: E731

@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 
-P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+P, I, F, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong, ctypes.c_uint
 _SIGNATURES = {
     # pointers: ray_pos, ray_dir, dither, large_step, alive, is_back,
     # mini_table, scalars, pk_cum, pk_scode, pk_hist, n_cand; then ints
@@ -98,6 +98,10 @@ _SIGNATURES = {
     # ints h, w, refr, bf16; floats max_n, intensity, spread, proj_eps,
     # max_dist, max_tol, clamp_hi, rough_thr, curve, base_power; stream.
     "sspt_temporal": [P] * 16 + [I] * 4 + [F] * 10 + [P],
+    # pointers: pix_x, pix_y, sobol, ranking, scrambling (the tables null
+    # in Sobol-Owen mode), out; long long n; int mode; unsigned
+    # frame_index, first; int count; stream.
+    "sspt_sampler": [P] * 6 + [L, I, U, U, I] + [P],
 }
 
 
@@ -211,6 +215,48 @@ def resource_usage() -> list[dict]:
     return parse_ptxas(_library_path().with_suffix(".ptxas.txt").read_text())
 
 
+def sass_text(so) -> str | None:
+    """``cuobjdump -sass`` of the library ``so``; None where cuobjdump is
+    missing."""
+    nvcc = nvcc_path()
+    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if tool is None or not tool.exists():
+        return None
+    return subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
+
+
+def _sass_functions(listing: str) -> list:
+    """[(mangled name, [(address, predicate, instruction)], {label:
+    address})] of each function in ``cuobjdump -sass`` text."""
+    funcs, pending = [], []
+    for line in listing.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            funcs.append((m.group(1), [], {}))
+            pending = []
+        elif not funcs:
+            continue
+        elif m := re.match(r"\s*(\.L_x_\d+):", line):
+            pending.append(m.group(1))
+        elif m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?(.*?)\s*;", line):
+            at = int(m.group(1), 16)
+            for label in pending:
+                funcs[-1][2][label] = at
+            pending = []
+            funcs[-1][1].append((at, (m.group(2) or "").strip(), m.group(3)))
+    return funcs
+
+
+def _opcode(text: str) -> str:
+    return text.split()[0].split(".")[0]
+
+
+def _branch_target(text: str, labels: dict):
+    """The address a BRA jumps to, or None for any other instruction."""
+    if b := re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", text):
+        return labels.get(b.group(1)) if b.group(1) else int(b.group(2), 16)
+    return None
+
+
 def sass_loops(so) -> dict:
     """{kernel: {"instructions": all of its SASS, "loops": the SASS
     instructions of each loop, fewest first, "inner_loops": those of the
@@ -218,45 +264,22 @@ def sass_loops(so) -> dict:
     from ``cuobjdump
     -sass`` of the library ``so``: a loop is a backward branch and the
     code it jumps back over. Empty where cuobjdump is missing."""
-    nvcc = nvcc_path()
-    tool = Path(nvcc).parent / "cuobjdump" if nvcc else None
-    if tool is None or not tool.exists():
-        return {}
-    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
-    loops, name, addrs, labels, branches, warp_ops = {}, None, [], {}, [], set()
-
-    def close():
-        if name is not None:
-            spans, lane = [], []
-            for at, target in branches:
-                dest = labels.get(target, target) if isinstance(target, str) else target
-                if isinstance(dest, int) and dest <= at:
-                    span = [a for a in addrs if dest <= a <= at]
-                    spans.append(len(span))
-                    if not warp_ops.intersection(span):
-                        lane.append(len(span))
-            loops[_kernel_name(name)] = dict(instructions=len(addrs), loops=sorted(spans),
-                                             inner_loops=sorted(lane))
-
-    pending = []
-    for line in out.splitlines():
-        if m := re.search(r"Function : (\S+)", line):
-            close()
-            name, addrs, labels, branches, pending = m.group(1), [], {}, [], []
-            warp_ops = set()
-        elif m := re.match(r"\s*(\.L_x_\d+):", line):
-            pending.append(m.group(1))
-        elif m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line):
-            at = int(m.group(1), 16)
-            addrs.append(at)
-            for label in pending:
-                labels[label] = at
-            pending = []
-            if re.search(r"\b(VOTE|SHFL|ATOMG?|RED|STG)\b", m.group(2)):
-                warp_ops.add(at)
-            if b := re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))", m.group(2)):
-                branches.append((at, b.group(1) if b.group(1) else int(b.group(2), 16)))
-    close()
+    listing = sass_text(so)
+    loops = {}
+    for name, instrs, labels in _sass_functions(listing or ""):
+        addrs = [a for a, _, _ in instrs]
+        warp_ops = {a for a, _, text in instrs
+                    if re.search(r"\b(VOTE|SHFL|ATOMG?|RED|STG)\b", text)}
+        spans, lane = [], []
+        for at, _, text in instrs:
+            dest = _branch_target(text, labels)
+            if dest is not None and dest <= at:
+                span = [a for a in addrs if dest <= a <= at]
+                spans.append(len(span))
+                if not warp_ops.intersection(span):
+                    lane.append(len(span))
+        loops[_kernel_name(name)] = dict(instructions=len(addrs), loops=sorted(spans),
+                                         inner_loops=sorted(lane))
     return loops
 
 
@@ -264,6 +287,92 @@ def library_sass_loops() -> dict:
     """``sass_loops`` of the built library."""
     load_library()
     return sass_loops(_library_path())
+
+
+# SASS opcodes by the sm_90 pipe that executes them, and its lanes an SM
+# a clock (the CUDA C++ Programming Guide's throughput table for compute
+# capability 9.0): integer add, compare, shift, logic and select on the
+# ALU pipe (64); integer multiply-add on the heavy half of the FMA pipe
+# (64); f32 add and multiply on either half (128 with the integer
+# multiply-adds); bit reversal, bit counts, conversions and special
+# functions (16). Every other instruction (moves, memory, control,
+# uniform-datapath) is counted only where it takes an issue slot: four
+# schedulers of 32 lanes an SM a clock.
+SASS_PIPES = {
+    "alu": ({"LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "ISETP", "LEA", "SEL", "FSEL",
+             "FSETP", "FMNMX", "IMNMX", "PRMT", "PLOP3", "IABS", "SGXT", "BMSK"}, 64),
+    "imad": ({"IMAD", "IMUL", "IDP"}, 64),
+    "fp32": ({"FADD", "FMUL", "FFMA"}, 128),
+    "xu": ({"BREV", "POPC", "FLO", "I2F", "F2I", "F2F", "FRND", "MUFU"}, 16),
+}
+SASS_ISSUE_LANES = 128
+
+
+def sass_must_run(listing: str) -> dict:
+    """{kernel: {"static": its SASS instructions, "must_run": {pipe:
+    count, "issue": count}}} from ``cuobjdump -sass`` text: the
+    instructions of the basic blocks that dominate the block of the
+    kernel's last global store, which every thread that stores executes
+    whatever the arguments (a predicated instruction issues all the
+    same). Code a branch can skip is left out, so the counts are a lower
+    bound on what a storing thread executes."""
+    kernels = {}
+    for name, instrs, labels in _sass_functions(listing):
+        index = {a: i for i, (a, _, _) in enumerate(instrs)}
+        ends = ("BRA", "EXIT", "RET")
+        leaders = {0}
+        for i, (_, _, text) in enumerate(instrs):
+            if _opcode(text) in ends:
+                leaders.add(i + 1)
+            if (t := index.get(_branch_target(text, labels))) is not None:
+                leaders.add(t)
+        starts = sorted(x for x in leaders if x < len(instrs))
+        bounds = list(zip(starts, starts[1:] + [len(instrs)]))
+        block_of = {i: b for b, (lo, hi) in enumerate(bounds) for i in range(lo, hi)}
+        succ = {b: set() for b in range(len(bounds))}
+        for b, (_, hi) in enumerate(bounds):
+            _, pred, text = instrs[hi - 1]
+            if (t := index.get(_branch_target(text, labels))) is not None:
+                succ[b].add(block_of[t])
+            if (pred or _opcode(text) not in ends) and hi < len(instrs):
+                succ[b].add(block_of[hi])
+        stores = [i for i, (_, _, text) in enumerate(instrs) if _opcode(text) == "STG"]
+        if not stores:
+            continue
+        preds = {b: [a for a in succ if b in succ[a]] for b in succ}
+        dom = {b: ({0} if b == 0 else set(succ)) for b in succ}
+        changed = True
+        while changed:
+            changed = False
+            for b in list(succ)[1:]:
+                new = {b} | (set.intersection(*(dom[p] for p in preds[b])) if preds[b] else set())
+                if new != dom[b]:
+                    dom[b], changed = new, True
+        mix = collections.Counter()
+        for i, (_, _, text) in enumerate(instrs):
+            if block_of[i] in dom[block_of[stores[-1]]]:
+                mix["issue"] += 1
+                mix.update(pipe for pipe, (ops, _) in SASS_PIPES.items() if _opcode(text) in ops)
+        kernels[_kernel_name(name)] = dict(static=len(instrs), must_run=dict(mix))
+    return kernels
+
+
+def sass_lane_clocks(mix: dict) -> tuple[float, str]:
+    """The least SM clocks a lane of the instruction ``mix`` takes
+    (``sass_must_run``'s counts), and the pipe or issue limit that sets
+    it: each pipe's instructions over its lanes a clock, the two FMA
+    halves' together, and every instruction over the issue slots."""
+    limits = {pipe: mix.get(pipe, 0) / lanes for pipe, (_, lanes) in SASS_PIPES.items()}
+    limits["fma"] = (mix.get("imad", 0) + mix.get("fp32", 0)) / SASS_PIPES["fp32"][1]
+    limits["issue"] = mix.get("issue", 0) / SASS_ISSUE_LANES
+    pipe = max(limits, key=limits.get)
+    return limits[pipe], pipe
+
+
+def library_sass_must_run() -> dict:
+    """``sass_must_run`` of the built library; empty without cuobjdump."""
+    load_library()
+    return sass_must_run(sass_text(_library_path()) or "")
 
 
 def check(rc: int, name: str) -> None:

@@ -4,10 +4,10 @@ A copy of the parts of ``unitysspathtracingurp_tpu.models.fixtures``
 that the port uses (``rasterize_gbuffers`` for the opaque G-buffer +
 depth, the backface depth + normals, the transparent G-buffer + layer-1
 depth and the motion vectors; the BoxScene, classroom, figure and plane
-cameras): the JAX package imports JAX, which the port's runtime does not
-have. Primary rays are cast in host numpy; the result is the port's
-``GBuffers`` on ``device`` (the card unless the caller asks for the
-CPU).
+cameras; the BoxScene's baked probes): the JAX package imports JAX,
+which the port's runtime does not have. Primary rays are cast in host
+numpy; the result is the port's ``GBuffers`` on ``device`` (the card
+unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -191,3 +191,40 @@ def plane_scene_camera(height: int, width: int, device="cuda") -> Camera:
     return make_camera(eye=[0.0, 1.5, 4.0], target=[0.0, 0.5, 0.0], up=[0.0, 1.0, 0.0],
                        fov_y=np.radians(60.0), aspect=width / height, near=0.1, far=100.0,
                        device=device)
+
+
+# The reference BoxScene's three baked reflection probes, which the binder
+# re-selects each frame (PathTracingSetReflectionProbe.cs:49-83), placed
+# inside the analytic box (x, z in [-3, 3], y in [0, 4]).
+BOX_PROBE_POSITIONS = (
+    (-1.5, 2.2, 0.0),
+    (1.5, 2.2, 0.0),
+    (0.0, 2.0, 1.8),
+)
+BOX_PROBE_BOUNDS = ((-3.0, 0.0, -3.0), (3.0, 4.0, 3.0))
+
+
+def bake_box_scene_probes(sc=None, resolution: int = 32, device="cuda") -> list:
+    """The three box-projected BoxScene probes, baked at
+    ``BOX_PROBE_POSITIONS`` (probe i with seed i). ``sc`` defaults to the
+    mirror BoxScene."""
+    from . import scene as scene_mod
+    from .probes import bake_probe
+
+    if sc is None:
+        sc = scene_mod.build_box_scene()
+    box_min, box_max = BOX_PROBE_BOUNDS
+    return [bake_probe(sc, p, resolution=resolution, seed=i, box_min=box_min,
+                       box_max=box_max, device=device)
+            for i, p in enumerate(BOX_PROBE_POSITIONS)]
+
+
+def box_scene_probes(sc=None, camera_position=(0.0, 1.8, 6.5), resolution: int = 32,
+                     device="cuda"):
+    """The flagship BoxScene probe setup (JAX ``fixtures.py:250-275``): the
+    three probes of ``bake_box_scene_probes``, the two closest to the
+    camera bound as the binder does."""
+    from .probes import closest_probes
+
+    return closest_probes(bake_box_scene_probes(sc, resolution, device), BOX_PROBE_POSITIONS,
+                          camera_position, device=device)

@@ -17,8 +17,10 @@ K1 / K4 / K6 and R1), "xla" the parity march (kernel P1), as in the
 JAX package. ``hdr_64bit=False`` is the 11-bit-float HDR target: a
 bf16 accumulator and color / emission history, and a 64-sample budget.
 
-Render-scale upscaling (ROADMAP Queue 1 item 13) and multi-device
-sharding (item 14) raise NotImplementedError.
+The noise method picks the RNG (hashed, blue noise with the tables built
+once on the device, or Sobol-Owen); ``bind_probes`` binds the two probes
+closest to the camera. Render-scale upscaling (ROADMAP Queue 1 item 13)
+and multi-device sharding (item 14) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,12 +36,14 @@ from ..config import MAX_SAMPLES_LOW_PRECISION, DenoiserType, PTConfig, PTSettin
 from ..gbuffer import GBuffers
 from ..ops.accumulate import OfflineAccumState, add_convergence_cue, offline_accumulate
 from ..ops.atrous import atrous_filter
+from ..ops.blue_noise import BlueNoiseTables
 from ..ops.envprobe import ProbeSet, constant_probe
 from ..ops.depth_tiles import variant_combos
 from ..ops.pathtrace import ray_march, trace_frame
 from ..ops.pathtrace_hiz import build_tiles_for, trace_frame_hiz
 from ..ops.rng import advance_frame_index
 from ..ops.temporal import TemporalState, temporal_reproject
+from .probes import closest_probes
 
 
 class Renderer:
@@ -78,7 +82,7 @@ class Renderer:
         self.cfg = cfg
         self.fov_y = fov_y
         self.kernel = "hiz" if kernel == "auto" else kernel
-        self.variants = settings.variants().check_supported()
+        self.variants = settings.variants()
         # ThicknessMode value: 2 (DepthNormals) lets back normals feed the
         # inside-object and back-hit normal flips.
         self.back_depth_enabled = int(settings.accurate_thickness.value)
@@ -90,6 +94,9 @@ class Renderer:
         self.probes = (
             probes or ProbeSet(probe0=constant_probe([0.0, 0.0, 0.0], device=self.device))
         ).to(self.device)
+        # Blue noise builds its tables once, on the card (the reference
+        # binds its three noise textures once at feature setup, cs:401-420).
+        self.rng_tables = BlueNoiseTables(device=self.device) if self.variants.blue_noise else None
         self.frame_index = 0
         self.paused = False
         self.max_sample = (settings.maximum_samples if hdr_64bit else
@@ -115,6 +122,14 @@ class Renderer:
     @property
     def sample(self) -> int:
         return self.offline_state.sample
+
+    def bind_probes(self, probe_list, positions, cam: Camera):
+        """Per-frame probe binding (PathTracingSetReflectionProbe.cs:49-83):
+        the two probes closest to the camera become the tracer's
+        environment fallback, moved to the Renderer's device."""
+        self.probes = closest_probes(probe_list, positions,
+                                     cam.position.detach().cpu().numpy(),
+                                     device=self.device)
 
     def _depth_sources(self, gb: GBuffers):
         """Every depth image the tiles read: layer-1 for the plain layout,
@@ -143,11 +158,13 @@ class Renderer:
                 gb, cam, self.probes, self.settings, self.cfg, self.variants,
                 self.frame_index, march_fn=ray_march,
                 back_depth_enabled=self.back_depth_enabled, history_sample=history_sample,
+                rng_tables=self.rng_tables,
             )
         return trace_frame_hiz(
             gb, cam, self.probes, self.settings, self.cfg, self.variants,
             self.frame_index, back_depth_enabled=self.back_depth_enabled,
             tiles=self._get_tiles(gb, cam), history_sample=history_sample,
+            rng_tables=self.rng_tables,
         )
 
     def _realtime(self, gb: GBuffers, cam: Camera):

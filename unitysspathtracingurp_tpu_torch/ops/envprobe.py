@@ -1,11 +1,14 @@
 """Reflection-probe fallback on ray miss (PathTracingFallback.hlsl:264-318).
 
-Ported here: the oct mapping, the resolution-1 (constant-sky) probe
-path that the BoxScene and classroom frames take, and ``sample_bilinear``
-(the temporal pass reads its history through it). Box projection, probe
-mips, bilinear sampling of larger probes and the two-probe blend are
-ROADMAP Queue 1 item 12; a probe that needs them raises
-``NotImplementedError``.
+Up to two probes, each an octahedral-mapped 2D texture (the JAX
+package's stand-in for a cubemap) with an optional box projection, an
+HDR multiplier and a prefiltered mip chain; a blend weight between the
+two, the ``_ProbeSet`` switch and the x0.3 damping of a probe camera.
+Plain PyTorch, as in the JAX package (``ops/envprobe.py``).
+
+A probe read at one mip level that is 1x1 (the constant sky) returns its
+texel times the HDR multiplier without the lookup: the lookup direction
+cannot change a 1x1 texture's bilinear read, so the value is the same.
 """
 
 from __future__ import annotations
@@ -115,25 +118,86 @@ def sample_bilinear(texture, uv):
     return top * (1.0 - fy) + bot * fy
 
 
+def build_probe_mips(texture, n_mips: int = 4) -> tuple:
+    """The prefiltered chain of an oct-mapped probe texture (JAX
+    ``envprobe.py:124-145``): level 0 is ``texture``; each further level
+    a 3x3 binomial blur with edge clamp (rows, then columns), then a 2x2
+    box downsample, the four texels summed in XLA:CPU's order of the
+    mean, ((top-left + top-right) + bottom-left) + bottom-right, and
+    scaled by 0.25."""
+    mips = [texture]
+    t = texture
+    for _ in range(n_mips - 1):
+        if t.shape[0] < 2 or t.shape[1] < 2:
+            break
+        p = torch.cat([t[:1], t, t[-1:]], dim=0)
+        t = (p[:-2] + 2.0 * p[1:-1] + p[2:]) * 0.25
+        p = torch.cat([t[:, :1], t, t[:, -1:]], dim=1)
+        t = (p[:, :-2] + 2.0 * p[:, 1:-1] + p[:, 2:]) * 0.25
+        h, w = t.shape[0] // 2 * 2, t.shape[1] // 2 * 2
+        t = t[:h, :w]
+        t = (((t[0::2, 0::2] + t[0::2, 1::2]) + t[1::2, 0::2]) + t[1::2, 1::2]) * 0.25
+        mips.append(t)
+    return tuple(mips)
+
+
+def box_projected_direction(direction, position_ws, probe: EnvProbe):
+    """Parallax-corrected lookup direction of a box-projected probe
+    (PathTracingFallback.hlsl:271-276): the ray leaves the probe's box at
+    the nearest face, re-aimed from the probe origin. A zero component
+    (|d| < 1e-9) constrains nothing: its factor is +inf. The factors
+    divide by a tensor, as on the card a division by a Python number
+    would become a product with its reciprocal."""
+    bounds = torch.where(direction > 0.0, probe.box_max, probe.box_min)
+    zero = torch.abs(direction) < 1e-9
+    d = torch.where(zero, torch.ones_like(direction), direction)
+    factors = torch.where(zero, torch.full_like(direction, float("inf")),
+                          (bounds - position_ws) / d)
+    scalar = torch.amin(factors, dim=-1, keepdim=True)
+    return direction * scalar + (position_ws - probe.position)
+
+
+def _mip_texture(probe: EnvProbe, level: int):
+    if not probe.mips:
+        return probe.texture
+    return probe.mips[min(level, len(probe.mips) - 1)]
+
+
 def sample_probe(probe: EnvProbe, direction, position_ws, mip_level: float = 0.0):
-    """One probe, resolution-1 path: the oct lookup lands on the single
-    texel whatever the direction, so the result is its colour."""
-    if probe.texture.shape[0] != 1 or probe.texture.shape[1] != 1:
-        raise NotImplementedError(
-            "probes above resolution 1 (bilinear oct sampling, box "
-            "projection, mips): ROADMAP Queue 1 item 12"
-        )
-    color = probe.texture[0, 0].expand(direction.shape[:-1] + (3,))
+    """One probe (JAX ``envprobe.py:166-181``): the box-projected or the
+    plain direction, its oct uv, a bilinear read of mip ``int(mip_level)``
+    and, for a fractional level of a probe with mips, a linear blend with
+    the next level; times the HDR multiplier."""
+    lo = int(mip_level)
+    frac = float(mip_level) - lo
+    levels = [_mip_texture(probe, lo)]
+    if frac > 0.0 and probe.mips:
+        levels.append(_mip_texture(probe, lo + 1))
+    if len(levels) == 1 and tuple(levels[0].shape[:2]) == (1, 1):
+        color = levels[0][0, 0].expand(direction.shape[:-1] + (3,))
+        return color * probe.hdr_mult
+    projected = box_projected_direction(direction, position_ws, probe)
+    lookup = torch.where(probe.box_projection > 0.0, projected, direction)
+    uv = oct_encode(lookup)
+    color = sample_bilinear(levels[0], uv)
+    if len(levels) == 2:
+        color = color * (1.0 - frac) + sample_bilinear(levels[1], uv) * frac
     return color * probe.hdr_mult
 
 
 def sample_reflection_probes(probes: ProbeSet, direction, position_ws, mip_level=1.0):
-    """SampleReflectionProbes analog (PathTracingFallback.hlsl:306-318)."""
-    if probes.probe1 is not None and probes.blend_weight is not None:
-        raise NotImplementedError("two-probe blend: ROADMAP Queue 1 item 12")
+    """SampleReflectionProbes analog (PathTracingFallback.hlsl:306-318):
+    every ray miss samples mip 1 of the chain (the reference's constant
+    lod); ``probe_set`` 0 turns the probe off, a positive ``blend_weight``
+    blends in the second probe, and a probe camera's color is damped by
+    0.3."""
     color = sample_probe(probes.probe0, direction, position_ws, mip_level)
     if probes.probe_set is not None:
         color = torch.where(probes.probe_set == 1.0, color, torch.zeros_like(color))
+    if probes.probe1 is not None and probes.blend_weight is not None:
+        color2 = sample_probe(probes.probe1, direction, position_ws, mip_level)
+        w = probes.blend_weight
+        color = torch.where(w > 0.0, color * (1.0 - w) + color2 * w, color)
     if probes.is_probe_camera is not None:
         color = torch.where(probes.is_probe_camera == 1.0, color * 0.3, color)
     return color

@@ -439,11 +439,15 @@ def apply_backface_normal_flip(surf, src, uv, is_back_hit, variants, back_depth_
 
 
 def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
-                back_depth_enabled: int = 0, history_sample=None):
+                back_depth_enabled: int = 0, history_sample=None, rng_tables=None):
     """Pass 0 (PathTracing.hlsl:385-496; shader:114-147). Returns the
     traced radiance (H, W, 3); sky pixels return ``gb.emission`` and,
     with the forward-only variant, forward-only pixels their emission.
     ``back_depth_enabled`` is the ThicknessMode value (2 = DepthNormals).
+    The RNG is Sobol-Owen under ``variants.sobol_owen``, else blue noise
+    where ``rng_tables`` (``ops.blue_noise.BlueNoiseTables``) is given,
+    as in the JAX package (the Renderer builds the tables under
+    ``NoiseMethod.BLUE_NOISE``), else hashed.
 
     ``samples_per_pixel`` > 1 runs the samples one after another, each on
     the stream ``sample_rng`` gives it, and sums them in sample order:
@@ -457,7 +461,6 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
     below the pixel's ray count, and every contribution is scaled by the
     pixel's 1 / ray count, a per-lane column that lane compaction
     carries like the others."""
-    variants.check_supported()
     dev = gb.device
     h, w = gb.height, gb.width
     uv = pixel_uv(h, w, device=dev)
@@ -465,7 +468,8 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
     is_background = primary_raw == RAW_FAR_CLIP
     position_ws = world_from_uv_depth(cam.inv_view_proj, uv, primary_raw)
     view_dir = normalize(cam.position - position_ws)
-    rng = make_rng(h, w, frame_index, device=dev)
+    rng = make_rng(h, w, frame_index, device=dev, tables=rng_tables,
+                   sobol_owen=variants.sobol_owen)
     # Step-size dither (ref :390-401; the 0.2-range branch, as the JAX
     # package rebuilds it): one draw ahead of every sample's stream.
     if settings.dithering:

@@ -508,7 +508,6 @@ def ray_march_hiz(cfg, settings, variants, gb, cam, ray_pos, ray_dir, inside,
     plain layout of h % 8 == 0, w % 128 == 0 the front half is K6.
     ``_debug_out``: the diagnostic march (module docstring); each call
     namespaces its counters ``c{call}_`` by the dict's ``_calls``."""
-    variants.check_supported()
     dual = isinstance(tiles, DualDepthTiles)
     if not dual and (variants.backface_textures or variants.support_refraction):
         raise ValueError("refraction / backface variants march DualDepthTiles")
@@ -706,7 +705,6 @@ def build_tiles_for(gb, cam, variants):
     """The depth structure the hiz march needs for this variant set:
     plain pair tables without refraction and backface, per-combo
     dual-layer tables otherwise."""
-    variants.check_supported()
     if not (variants.backface_textures or variants.support_refraction):
         return build_depth_tiles(gb.layer1_depth(), cam.near, cam.far)
     return build_dual_depth_tiles(
@@ -716,7 +714,7 @@ def build_tiles_for(gb, cam, variants):
 
 def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
                     back_depth_enabled: int = 0, n_rounds=None, tiles=None,
-                    _debug_out: dict | None = None, history_sample=None):
+                    _debug_out: dict | None = None, history_sample=None, rng_tables=None):
     """Pass 0 with the hiz march (``trace_frame`` with ``march_fn``
     injected). ``back_depth_enabled`` is the ThicknessMode value (2 =
     DepthNormals: back normals feed the inside-object normal flip).
@@ -727,7 +725,8 @@ def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
     batched samples share (``pathtrace_hiz.py:1019-1031``); the same
     budget a bounce either way. ``_debug_out``: every bounce's march is
     the diagnostic march (``ray_march_hiz``). ``history_sample``: the
-    temporal history's sample counts, for adaptive spp."""
+    temporal history's sample counts, for adaptive spp. ``rng_tables``:
+    the blue-noise tables (``ops.blue_noise.BlueNoiseTables``)."""
     if tiles is None:
         tiles = build_tiles_for(gb, cam, variants)
     rounds = n_rounds if n_rounds is not None else cfg.hiz_rounds
@@ -743,4 +742,4 @@ def trace_frame_hiz(gb, cam, probes, settings, cfg, variants, frame_index,
         march_fn = partial(ray_march_hiz, tiles=tiles, n_rounds=rounds, _debug_out=_debug_out)
     return trace_frame(gb, cam, probes, settings, cfg, variants, frame_index,
                        march_fn=march_fn, back_depth_enabled=back_depth_enabled,
-                       history_sample=history_sample)
+                       history_sample=history_sample, rng_tables=rng_tables)
