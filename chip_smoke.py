@@ -29,10 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
      a moved camera's history with an emission change and an off-screen
      band), A1 with row_offset 0 and 17 and on the glass box with
      refraction, T1 with f32 and bf16 history and on the glass box; S1
-     (the blue-noise and Sobol-Owen draws) against its plain version,
-     bit for bit, at 256^2 and 1080p: both modes, draw and draw2 after
-     an odd and an even counter, frames in epoch 0 and epoch 1, on the
-     pixel grid and on a compacted gather of it;
+     (the RNG's draws) against its plain version, bit for bit, at 256^2
+     and 1080p: the hashed, blue-noise and Sobol-Owen modes, draw and
+     draw2 after an odd and an even counter, frames in epoch 0 and
+     epoch 1, on the pixel grid and on a compacted gather of it;
   4. one whole frame of each of the headline, dual, home, parity
      headline, parity dual, spp-2 dithered headline, oct-normals +
      forward-only headline, blue-noise and Sobol-Owen headlines and the
@@ -45,7 +45,9 @@ Phases (any failure exits non-zero and prints no result line):
      adaptive-spp trace alone, bit for bit, at 256^2 and 1080p; two
      (g)-style TEMPORAL frames with blue noise at 256^2, bit for bit;
   5. the main paths, each with the launch counts set to 0 just before
-     and read just after it: Renderer.render_frame, OFFLINE, 1920x1080,
+     and read just after it (every path draws through S1, one launch a
+     draw or draw2: 2 + 3 a bounce for each sample, and the step
+     dither's draw): Renderer.render_frame, OFFLINE, 1920x1080,
      (a) the headline BoxScene with PTConfig.boxscene_headline(), (b)
      the glass BoxScene with refraction + DepthNormals thickness, (c)
      the headline with the home prefix and hiz_home_round_cap=0.4, (d)
@@ -55,13 +57,13 @@ Phases (any failure exits non-zero and prints no result line):
      step dithering (hiz: 8 K1 and 8 R1 launches a frame); then the
      real-time cells of scripts/bench_suite.py:169-213, the classroom at
      1920x1080, 2 bounces, spp 1 adaptive to 4, hiz: (g) TEMPORAL with
-     a static camera (8 K1, 8 R1 and 1 T1 launches a frame) and (h)
+     a static camera (8 K1, 8 R1, 32 S1 and 1 T1 launches a frame) and (h)
      SPATIAL_TEMPORAL at MEDIUM with the camera alternating between two
      positions (the same and 3 A1); then (i) the headline with blue
      noise and (j) with Sobol-Owen (4 K1, 4 R1 and 14 S1 launches a
-     frame: one a draw or draw2) and (k) the headline lit by the
+     frame, as the hashed headline) and (k) the headline lit by the
      BoxScene's box-projected probes (resolution 32, the two closest
-     bound by Renderer.bind_probes; 4 K1, 4 R1, no S1), with the probe
+     bound by Renderer.bind_probes; 4 K1, 4 R1, 14 S1), with the probe
      pass's device time on its own inputs; 1 warm-up + timed frames;
      each followed by a torch.profiler report of two more frames (a
      report, never a gate);
@@ -172,21 +174,23 @@ KERNELS = {
         replaces="unitysspathtracingurp_tpu/ops/rng.py:118, :238",
     ),
 }
-# The kernels each path launches (the others must stay at 0 there).
+# The kernels each path launches (the others must stay at 0 there). S1
+# draws the RNG of every path, in its hashed mode unless the path names
+# another sampler.
 PATHS = {
-    "headline": ("schedule_pack", "resolve_rounds"),
-    "dual": ("schedule_pack_dual", "resolve_rounds_dual"),
-    "home": ("schedule_pack_home", "schedule_pack", "resolve_rounds"),
-    "diagnostic": ("broadcast_table_select", "pack_by_slot", "resolve_rounds"),
-    "extract": ("schedule_pack", "extract_chain", "rowwise_select"),
-    "parity": ("ray_march",),
-    "parity_dual": ("ray_march",),
-    "dither2": ("schedule_pack", "resolve_rounds"),
-    "realtime": ("schedule_pack", "resolve_rounds", "temporal"),
-    "spatial_temporal": ("schedule_pack", "resolve_rounds", "atrous", "temporal"),
+    "headline": ("schedule_pack", "resolve_rounds", "sampler"),
+    "dual": ("schedule_pack_dual", "resolve_rounds_dual", "sampler"),
+    "home": ("schedule_pack_home", "schedule_pack", "resolve_rounds", "sampler"),
+    "diagnostic": ("broadcast_table_select", "pack_by_slot", "resolve_rounds", "sampler"),
+    "extract": ("schedule_pack", "extract_chain", "rowwise_select", "sampler"),
+    "parity": ("ray_march", "sampler"),
+    "parity_dual": ("ray_march", "sampler"),
+    "dither2": ("schedule_pack", "resolve_rounds", "sampler"),
+    "realtime": ("schedule_pack", "resolve_rounds", "temporal", "sampler"),
+    "spatial_temporal": ("schedule_pack", "resolve_rounds", "atrous", "temporal", "sampler"),
     "blue_noise": ("schedule_pack", "resolve_rounds", "sampler"),
     "sobol_owen": ("schedule_pack", "resolve_rounds", "sampler"),
-    "probes": ("schedule_pack", "resolve_rounds"),
+    "probes": ("schedule_pack", "resolve_rounds", "sampler"),
 }
 # The G-buffer P1's bound counts: 4 B a texel of each depth image in use.
 P1_LANE_IN = 12 + 12 + 12 + 4 + 4 + 4  # pos, dir, view dir, inside, dither, large step
@@ -311,7 +315,7 @@ S1_TABLE_BYTES = (256 * 256 + 2 * 131072) * 4
 
 
 def s1_sass() -> dict:
-    """{"<mode>,<count>,<first & 1>": must-run SASS mix} of S1's six
+    """{"<mode>,<count>,<first & 1>": must-run SASS mix} of S1's eight
     instances (kernels.build.sass_must_run), printed with the pipe that
     bounds each. Raises without cuobjdump: S1's bound is counted from its
     SASS."""
@@ -321,7 +325,7 @@ def s1_sass() -> dict:
 
     sass = {k[len("sampler_kernel<"):-1]: v for k, v in library_sass_must_run().items()
             if k.startswith("sampler_kernel<")}
-    gate(len(sass) == 6, f"S1's six instances in the library's SASS (found {sorted(sass)})")
+    gate(len(sass) == 8, f"S1's eight instances in the library's SASS (found {sorted(sass)})")
     for key, v in sorted(sass.items()):
         clocks, pipe = sass_lane_clocks(v["must_run"])
         print(f"phase 3 S1 SASS sampler_kernel<{key}> (mode, count, first odd): "
@@ -348,10 +352,10 @@ def s1_bound(lanes: int, mode: int, first: int, count: int, sass: dict) -> dict:
 
 
 def check_sampler(h, w, dev, timing: bool):
-    """Phase 3: S1 against its plain version, bit for bit: both modes,
-    draw and draw2 through the RNG after the counters 0, 1, 6 and 7 (a
-    Sobol draw2 rounds an odd counter up), frames in epoch 0 and epoch 1
-    (the blue-noise rotation on), on the pixel grid and on a compacted
+    """Phase 3: S1 against its plain version, bit for bit: the three
+    modes, draw and draw2 through the RNG after the counters 0, 1, 6 and
+    7 (a Sobol draw2 rounds an odd counter up), frames in epoch 0 and
+    epoch 1 (the blue-noise rotation on), on the pixel grid and on a compacted
     gather of 40% of its lanes in a random order; a Sobol-Owen draw2 also
     from an even first, called directly. At 1080p also its SASS and its
     times on the frame's bounce-0 draws (the pixel grid)."""
@@ -360,14 +364,15 @@ def check_sampler(h, w, dev, timing: bool):
     from unitysspathtracingurp_tpu_torch.ops import rng
 
     tables = blue_noise_tables(dev)
-    grid = rng.make_rng(h, w, 0, dev, sobol_owen=True)
+    grid = rng.make_rng(h, w, 0, dev)
     n = h * w
     keep = n * 2 // 5 // 128 * 128
     idx = torch.randperm(n, generator=torch.Generator().manual_seed(11))[:keep].to(dev)
     lanes = {"uncompacted": (grid.pix_x, grid.pix_y),
              "compacted": tuple(t.reshape(-1)[idx].reshape(-1, 128)
                                 for t in (grid.pix_x, grid.pix_y))}
-    modes = ((rng.BLUE_NOISE, {"tables": tables}), (rng.SOBOL_OWEN, {"sobol_owen": True}))
+    modes = ((rng.HASHED, {}), (rng.BLUE_NOISE, {"tables": tables}),
+             (rng.SOBOL_OWEN, {"sobol_owen": True}))
     frames = (33 * 77, 33 * 300)
     cases, equal_all, err = 0, True, 0.0
     for mode, kw in modes:
@@ -393,8 +398,8 @@ def check_sampler(h, w, dev, timing: bool):
                         cases += 1
                         equal_all = equal_all and bits_equal(got, ref)
                         err = max(err, (got - ref).abs().max().item())
-    print(f"phase 3 S1 sampler {w}x{h}: {cases} cases (blue noise and Sobol-Owen x draw and "
-          f"draw2 after counters 0 / 1 / 6 / 7, and Sobol-Owen draw2 from first 2 / 6, x "
+    print(f"phase 3 S1 sampler {w}x{h}: {cases} cases (hashed, blue noise and Sobol-Owen x "
+          f"draw and draw2 after counters 0 / 1 / 6 / 7, and Sobol-Owen draw2 from first 2 / 6, x "
           f"frames {frames[0]} (epoch 0) and {frames[1]} (epoch 1) x {n} uncompacted and "
           f"{keep} compacted lanes) all equal {equal_all}, max abs err {err:.3e}")
     gate(equal_all, f"S1 bit-exact against its plain version ({w}x{h})")
@@ -404,7 +409,10 @@ def check_sampler(h, w, dev, timing: bool):
         fi = frames[1]
         px, py = lanes["uncompacted"]
         cpx, cpy = lanes["compacted"]
+        rows = {}
         for label, mode, first, count, (x, y) in (
+                ("hashed draw", rng.HASHED, 3, 1, (px, py)),
+                ("hashed draw2", rng.HASHED, 1, 2, (px, py)),
                 ("blue noise draw2", rng.BLUE_NOISE, 1, 2, (px, py)),
                 ("blue noise draw", rng.BLUE_NOISE, 3, 1, (px, py)),
                 ("Sobol-Owen draw", rng.SOBOL_OWEN, 3, 1, (px, py)),
@@ -419,7 +427,10 @@ def check_sampler(h, w, dev, timing: bool):
                   f"{first}): {o['ms']:.4f} ms, bound {o['bound_ms']:.4f} ms ({o['bound_by']}; "
                   f"share {o['bound_ms'] / o['ms']:.3f}), plain PyTorch {o['plain_ms']:.4f} ms, "
                   f"library none")
-        out["sampler"] = o  # the kernels line: a Sobol-Owen draw2 on the pixel grid
+            rows[label] = o
+        # The kernels line: the hashed draw2 on the pixel grid (the
+        # benchmark frame's mode), its draw beside it.
+        out["sampler"] = dict(rows["hashed draw2"], draw=rows["hashed draw"])
     return out
 
 
@@ -1591,10 +1602,9 @@ def convergence_report(dev, card):
         ref = {int(n): v for n, v in fixture[name]["curve"]}
         reached = next((n for n, v in curve if v <= 0.01), None)
         last = curve[-1][1]
-        print(f"phase 6 convergence {name}: {count} frames at {r}x{r}, 1 bounce, through P1"
-              f"{' and S1' if name != 'hashed_random' else ''} against "
-              f"fixtures/box256_golden.npz: pooled relative RMSE {last:.5f} (fixture "
-              f"{ref.get(count, math.nan):.5f}; gate <= {CONVERGENCE_GATE}), frames-to-1% "
+        print(f"phase 6 convergence {name}: {count} frames at {r}x{r}, 1 bounce, through P1 "
+              f"and S1 against fixtures/box256_golden.npz: pooled relative RMSE {last:.5f} "
+              f"(fixture {ref.get(count, math.nan):.5f}; gate <= {CONVERGENCE_GATE}), frames-to-1% "
               f"{reached} (fixture {fixture[name]['frames_to_1pct_pooled']}), {secs:.1f} s "
               f"[{card}]")
         print(f"phase 6 convergence {name} curve (frames: port / fixture): " + ", ".join(
@@ -2074,8 +2084,8 @@ def realtime_main_path(dev, card, path: str):
     """Phase 5: Renderer.render_frame at 1080p, TEMPORAL on (g) or
     SPATIAL_TEMPORAL on (h); the launch counts set to 0 just before and
     read just after. Each frame marches max(ray_count_low_sample, spp)
-    samples x 2 bounces (K1 and R1 each), runs À-Trous 2q + 1 times on
-    (h) and T1 once."""
+    samples x 2 bounces (K1 and R1 each), draws 2 + 3 x 2 times a sample
+    (S1 each), runs À-Trous 2q + 1 times on (h) and T1 once."""
     import torch
 
     from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
@@ -2084,9 +2094,12 @@ def realtime_main_path(dev, card, path: str):
     cycle = realtime_frames(path, H_FULL, W_FULL, dev)
     r = realtime_renderer(path, H_FULL, W_FULL, dev)
     s, cfg = r.settings, r.cfg
-    marches = max(cfg.ray_count_low_sample, s.samples_per_pixel) * s.maximum_depth
+    samples = max(cfg.ray_count_low_sample, s.samples_per_pixel)
+    marches = samples * s.maximum_depth
+    # One S1 launch a draw or draw2, every sample at full width.
+    draws = samples * (2 + 3 * s.maximum_depth) + int(s.dithering)
     expect = dict(schedule_pack=marches, resolve_rounds=marches, atrous=r.spatial_passes,
-                  temporal=1)
+                  temporal=1, sampler=draws)
     gate(set(k for k, v in expect.items() if v) == set(PATHS[path]), f"{path} kernel set")
     step = {"i": 0}
 
@@ -2180,11 +2193,10 @@ def main_path(dev, card, path: str):
     if path == "extract":
         rounds = bounces * default_rounds(H_FULL, W_FULL)
         expect.update(extract_chain=rounds, rowwise_select=rounds)
-    if "sampler" in PATHS[path]:
-        # One S1 launch a draw or draw2: bounce 0's BRDF draw2 and lobe
-        # roulette, then each bounce's draw2, lobe roulette and Russian
-        # roulette (and the step dither's draw).
-        expect["sampler"] = (2 + 3 * bounces) * s.samples_per_pixel + int(s.dithering)
+    # One S1 launch a draw or draw2: bounce 0's BRDF draw2 and lobe
+    # roulette, then each bounce's draw2, lobe roulette and Russian
+    # roulette (and the step dither's draw).
+    expect["sampler"] = (2 + 3 * bounces) * s.samples_per_pixel + int(s.dithering)
     LAUNCHES.clear()
     per_frame = []
     image = r.render_frame(gb, cam)  # warm-up: builds the depth tiles

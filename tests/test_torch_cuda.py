@@ -1,7 +1,7 @@
 """The CUDA kernels (K1, R1, K4, R1's dual mode, K6, K2, K3, R1's
 state-in form, K5, K7, P1 (the parity march), A1 (À-Trous), T1
-(temporal reprojection) and S1 (the blue-noise and Sobol-Owen draws))
-against their plain PyTorch versions, the unfused resolve rounds (K5 +
+(temporal reprojection) and S1 (the RNG's hashed, blue-noise and
+Sobol-Owen draws)) against their plain PyTorch versions, the unfused resolve rounds (K5 +
 K7) against R1, and probe sampling against the CPU, on the card.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device. On a
@@ -29,6 +29,9 @@ from unitysspathtracingurp_tpu_torch.ops import pallas_gather as pg
 from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
 from unitysspathtracingurp_tpu_torch.ops import pathtrace_hiz as ph
 from unitysspathtracingurp_tpu_torch.ops.depth_tiles import build_depth_tiles, build_home_strips
+from unitysspathtracingurp_tpu_torch.ops.rng import (
+    BLUE_NOISE, HASHED, SOBOL_OWEN, advance_frame_index,
+)
 
 pytestmark = pytest.mark.cuda
 H, W = 96, 160
@@ -943,11 +946,11 @@ def sampler_case():
 
 def _sampler_lanes(dev, lanes: str):
     """Pixel coordinates: a 200x300 grid, a compacted gather of 40% of it
-    in a random order ((ch, 128) lanes), one lane, and a lane count that
-    is no multiple of the 256-thread block."""
+    in a random order ((ch, 128) lanes), one lane, a lane count that is
+    no multiple of the 256-thread block, and no lane."""
     from unitysspathtracingurp_tpu_torch.ops.rng import make_rng
 
-    rng = make_rng(200, 300, 0, dev, sobol_owen=True)
+    rng = make_rng(200, 300, 0, dev)
     if lanes == "grid":
         return rng.pix_x, rng.pix_y
     if lanes == "compacted":
@@ -955,26 +958,34 @@ def _sampler_lanes(dev, lanes: str):
         idx = torch.randperm(200 * 300, generator=g)[:24064].to(dev)
         return (rng.pix_x.reshape(-1)[idx].reshape(188, 128),
                 rng.pix_y.reshape(-1)[idx].reshape(188, 128))
-    n = 1 if lanes == "one" else 256 * 7 + 93
-    return rng.pix_x.reshape(-1)[-n:], rng.pix_y.reshape(-1)[-n:]
+    start = 200 * 300 - {"one": 1, "ragged": 256 * 7 + 93, "none": 0}[lanes]
+    return rng.pix_x.reshape(-1)[start:], rng.pix_y.reshape(-1)[start:]
 
 
-@pytest.mark.parametrize("lanes", ["grid", "compacted", "one", "ragged"])
-@pytest.mark.parametrize("frame_index", [33 * 77, 33 * 300])  # epoch 0, epoch 1
+# Frame indices: the first frame; epoch 0 and epoch 1 of the blue-noise
+# rotation; frame index + draw past 2^32 (the hashed z wraps); the
+# Renderer's counter after it wraps at FRAME_INDEX_MOD.
+SAMPLER_FRAMES = [0, 33 * 77, 33 * 300, 33 * 400, 2**32 - 3, advance_frame_index(63990)]
+SAMPLER_MODES = {"hashed": HASHED, "blue_noise": BLUE_NOISE, "sobol_owen": SOBOL_OWEN}
+
+
+@pytest.mark.parametrize("lanes", ["grid", "compacted", "one", "ragged", "none"])
+@pytest.mark.parametrize("frame_index", SAMPLER_FRAMES)
 @pytest.mark.parametrize("first,count", [(1, 1), (4, 1), (3, 2), (6, 2), (1, 2)])
-@pytest.mark.parametrize("mode", ["blue_noise", "sobol_owen"])
+@pytest.mark.parametrize("mode", sorted(SAMPLER_MODES))
 def test_sampler_kernel_bit_exact(sampler_case, mode, first, count, frame_index, lanes):
     """S1 against its plain version on the same lanes: draw and draw2,
     the counter odd and even ahead of the first draw (a Sobol draw2 is
-    one pair from an odd ``first``; an even one straddles two pairs)."""
+    one pair from an odd ``first``; an even one straddles two pairs).
+    No lane launches nothing."""
     from unitysspathtracingurp_tpu_torch.ops import rng
 
     dev, tables = sampler_case
-    m = rng.BLUE_NOISE if mode == "blue_noise" else rng.SOBOL_OWEN
+    m = SAMPLER_MODES[mode]
     px, py = _sampler_lanes(dev, lanes)
     before = LAUNCHES["sampler"]
     got = rng.sampler_draws(px, py, frame_index, first, count, m, tables)
-    assert LAUNCHES["sampler"] == before + 1
+    assert LAUNCHES["sampler"] == before + (px.numel() > 0)
     want = rng.sampler_draws_ref(px, py, frame_index, first, count, m, tables)
     torch.cuda.synchronize()
     assert got.shape == want.shape == px.shape + ((2,) if count == 2 else ())
@@ -982,23 +993,69 @@ def test_sampler_kernel_bit_exact(sampler_case, mode, first, count, frame_index,
     assert bool(((got >= 0.0) & (got < 1.0)).all())
 
 
-def test_sampler_draw_stream_through_the_rng(sampler_case):
-    """draw / draw2 through the RNG in both modes on the card equal the
+@pytest.mark.parametrize("frame_index", [33 * 400, 0, 2**32 - 3, advance_frame_index(63990)])
+@pytest.mark.parametrize("mode", sorted(SAMPLER_MODES))
+def test_sampler_draw_stream_through_the_rng(sampler_case, mode, frame_index):
+    """draw / draw2 through the RNG in each mode on the card equal the
     same stream on the CPU (the plain version), 12 draws with the counter
     odd and even before each draw2."""
     from unitysspathtracingurp_tpu_torch.ops import rng
 
     dev, tables = sampler_case
-    cpu_tables = type(tables)(device="cpu")
-    for kw, cpu_kw in (({"tables": tables}, {"tables": cpu_tables}),
-                       ({"sobol_owen": True}, {"sobol_owen": True})):
-        a = rng.make_rng(37, 53, 33 * 400, dev, **kw)
-        b = rng.make_rng(37, 53, 33 * 400, "cpu", **cpu_kw)
-        for step in (1, 2, 1, 1, 2, 2, 1, 2):
-            fn = rng.draw if step == 1 else rng.draw2
-            (va, a), (vb, b) = fn(a), fn(b)
-            assert torch.equal(va.cpu().view(torch.int32), vb.view(torch.int32))
-            assert a.seed == b.seed
+    if mode == "blue_noise":
+        kw, cpu_kw = {"tables": tables}, {"tables": type(tables)(device="cpu")}
+    else:
+        kw = cpu_kw = {"sobol_owen": True} if mode == "sobol_owen" else {}
+    a = rng.make_rng(37, 53, frame_index, dev, **kw)
+    b = rng.make_rng(37, 53, frame_index, "cpu", **cpu_kw)
+    assert a.mode == b.mode == SAMPLER_MODES[mode]
+    for step in (1, 2, 1, 1, 2, 2, 1, 2):
+        fn = rng.draw if step == 1 else rng.draw2
+        (va, a), (vb, b) = fn(a), fn(b)
+        assert torch.equal(va.cpu().view(torch.int32), vb.view(torch.int32))
+        assert a.seed == b.seed
+
+
+def test_hashed_realtime_frames_through_s1_bit_exact():
+    """Three frames of a 64x96 classroom SPATIAL_TEMPORAL renderer (2
+    bounces, spp 1 adaptive to 4, hashed noise, the camera alternating
+    between two poses) draw through S1, 4 samples x (2 + 3 x 2) = 32
+    launches a frame, and equal bit for bit (image and history counts) the
+    same frames with the plain version drawing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from unitysspathtracingurp_tpu_torch.config import DenoiserType, NoiseMethod
+    from unitysspathtracingurp_tpu_torch.models.renderer import Renderer
+    from unitysspathtracingurp_tpu_torch.ops import rng
+    from unitysspathtracingurp_tpu_torch.ops.envprobe import ProbeSet, constant_probe
+
+    dev, h, w = torch.device("cuda", 0), 64, 96
+    cams = [fixtures.classroom_camera(h, w, jitter=j, device=dev) for j in (0.0, 0.05)]
+    room = scene.build_classroom_scene()
+    frames = [(fixtures.rasterize_gbuffers(room, cams[i], h, w, device=dev,
+                                           prev_cam=cams[1 - i]), cams[i]) for i in (0, 1)]
+    s = PTSettings(maximum_depth=2, samples_per_pixel=1, maximum_steps=24, dithering=False,
+                   denoiser=DenoiserType.SPATIAL_TEMPORAL,
+                   noise_method=NoiseMethod.HASHED_RANDOM)
+    fast, plain = (Renderer(s, h, w, probes=ProbeSet(probe0=constant_probe(
+        [0.05, 0.06, 0.08], device=dev)), kernel="hiz", device=dev) for _ in range(2))
+    kernel = rng.sampler_draws
+    for i in range(3):
+        gb, cam = frames[i % 2]
+        before = LAUNCHES["sampler"]
+        a = fast.render_frame(gb, cam)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sampler"] == before + 32
+        rng.sampler_draws = rng.sampler_draws_ref
+        try:
+            b = plain.render_frame(gb, cam)
+        finally:
+            rng.sampler_draws = kernel
+        torch.cuda.synchronize()
+        assert LAUNCHES["sampler"] == before + 32
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(fast.temporal_state.history_sample),
+                           _bits(plain.temporal_state.history_sample))
 
 
 def test_probe_sampling_on_the_card_within_an_ulp(sampler_case):

@@ -1,18 +1,22 @@
-// S1: the blue-noise and Sobol-Owen draws of the per-pixel counter RNG.
+// S1: the draws of the per-pixel counter RNG, in each of its three modes.
 //
 // Replaces unitysspathtracingurp_tpu/ops/rng.py _blue_noise_sample
-// (:118-154) and _sobol_owen_sample (:238-252), which the JAX package
+// (:118-154), _sobol_owen_sample (:238-252) and the hashed draw (draw
+// :255-270 through hashed_random_float :55), which the JAX package
 // writes in XLA as elementwise uint32 math over the pixel lanes. They are
 // no Pallas kernel. In plain PyTorch they run in int64 with 32-bit masks
 // (torch's uint32 lacks add and shifts on the CPU): a Sobol-Owen draw is
 // ~250-350 small launches over every lane (two Jenkins keys, two Owen
 // scrambles of five-round bit reversals and four multiply-xors each, 32
-// conditional xors for the second Sobol component), each moving ~16 B a
-// lane. The plain version is ops/rng.py sampler_draws_ref.
+// conditional xors for the second Sobol component), a hashed draw ~34
+// (three one-at-a-time hashes, the masks and the float construction),
+// each moving ~16 B a lane. The plain version is ops/rng.py sampler_draws_ref.
 //
 // Per lane, for draws first .. first + COUNT - 1 of the counter (the
 // counter, the frame index and every term of them alone are uniform over
 // lanes: host scalars):
+//   HASHED: jenkins3(pixel, frame_index + draw) with uint32 wrap-around,
+//     its low 23 bits the mantissa of a float in [1, 2), minus 1 (exact).
 //   SOBOL_OWEN: d = draw - 1, pair d >> 1, component d & 1; the frame
 //     number k = (frame_index * 9697) mod 64000 index-shuffled by the
 //     Owen scramble keyed by jenkins3(pixel, pair); component 0 the bit
@@ -33,9 +37,9 @@
 // IMADs issue on the FMA pipe beside the ALU pipe, so the bound counts the
 // SASS by pipe (kernels/build.py sass_must_run): a Sobol-Owen draw2 is 251
 // instructions a lane, 134 of them on the ALU pipe (64 lanes an SM a
-// clock), 16.6 us at 1080p; a blue-noise draw2 is 104, below its bytes.
-// The Sobol-Owen draws are bound by the ALU pipe, the blue-noise ones by
-// their bytes.
+// clock), 16.6 us at 1080p; a blue-noise draw2 is 104, below its bytes,
+// and a hashed draw a few dozen. The Sobol-Owen draws are bound by the
+// ALU pipe, the blue-noise and hashed ones by their bytes.
 //
 // The design: one thread a lane, 256 a block, COUNT draws a thread
 // written as one float or one float2; 32-bit unsigned arithmetic with
@@ -44,10 +48,11 @@
 // Sobol-Owen instance is chosen by the parity of the first draw, which
 // fixes each draw's component and a draw2's pairing: its code has no
 // branch, and its SASS is what every lane runs. The tables are int32 read
-// through __ldg. Each output bit equals sampler_draws_ref's (integer math
-// is exact; the floats are exact conversions of values below 2^24,
-// products and quotients by powers of two, one rounded add and
-// x - floor(x), in the plain version's order; --fmad=false).
+// through __ldg; the hashed mode reads none. Each output bit equals
+// sampler_draws_ref's (integer math is exact; the floats are exact
+// conversions of values below 2^24, products and quotients by powers of
+// two, one rounded add and x - floor(x), in the plain version's order;
+// --fmad=false).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +60,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BLUE_NOISE = 0, SOBOL_OWEN = 1;
+constexpr int BLUE_NOISE = 0, SOBOL_OWEN = 1, HASHED = 2;
 
 // Sobol dimension 2 (primitive polynomial x + 1: m_k = (m_{k-1} << 1) ^
 // m_{k-1}, the Pascal matrix), m_j << (31 - j).
@@ -82,6 +87,12 @@ __device__ __forceinline__ uint32_t jenkins(uint32_t x) {
 
 __device__ __forceinline__ uint32_t jenkins3(uint32_t x, uint32_t y, uint32_t z) {
   return jenkins(x ^ jenkins(y ^ jenkins(z)));
+}
+
+// GenerateHashedRandomFloat(uint3(px, py, z)): 23 bits of the hash as the
+// mantissa of a float in [1, 2), minus 1.
+__device__ __forceinline__ float hashed(uint32_t px, uint32_t py, uint32_t z) {
+  return __uint_as_float((jenkins3(px, py, z) & 0x007FFFFFu) | 0x3F800000u) - 1.0f;
 }
 
 // Laine-Karras hash (Burley 2020's constants).
@@ -144,9 +155,9 @@ __device__ __forceinline__ float blue_noise(uint32_t px, uint32_t py, uint32_t f
   return x - floorf(x);
 }
 
-// FIRST_ODD is first & 1 (Sobol-Owen only): it fixes each draw's
-// component and whether a draw2's two draws share a pair at compile time,
-// so the instance's code runs straight through.
+// FIRST_ODD is first & 1 (Sobol-Owen only; 0 in the other modes): it
+// fixes each draw's component and whether a draw2's two draws share a
+// pair at compile time, so the instance's code runs straight through.
 template <int MODE, int COUNT, int FIRST_ODD>
 __global__ void __launch_bounds__(THREADS)
     sampler_kernel(const int64_t* __restrict__ pix_x, const int64_t* __restrict__ pix_y,
@@ -170,6 +181,11 @@ __global__ void __launch_bounds__(THREADS)
       }
       v[c] = ((comp0 + c) & 1) ? sobol_owen<1>(px, py, shuffled, d)
                                : sobol_owen<0>(px, py, shuffled, d);
+    }
+  } else if (MODE == HASHED) {
+#pragma unroll
+    for (int c = 0; c < COUNT; ++c) {
+      v[c] = hashed(px, py, frame_index + first + c);
     }
   } else {
 #pragma unroll
@@ -197,7 +213,8 @@ void launch(const int64_t* px, const int64_t* py, const int* sobol, const int* r
 
 // ``count`` (1 or 2) draws starting at counter value ``first`` for ``n``
 // lanes in ``mode`` (0 blue noise, reading the three int32 tables; 1
-// Sobol-Owen, the tables may be null); ``out`` is (n,) or (n, 2) f32.
+// Sobol-Owen and 2 hashed, the tables may be null); ``out`` is (n,) or
+// (n, 2) f32.
 extern "C" int sspt_sampler(const void* pix_x, const void* pix_y, const void* sobol,
                             const void* ranking, const void* scrambling, void* out,
                             long long n, int mode, unsigned int frame_index,
@@ -215,6 +232,9 @@ extern "C" int sspt_sampler(const void* pix_x, const void* pix_y, const void* so
     } else if (mode == SOBOL_OWEN) {
       (odd ? launch<SOBOL_OWEN, 1, 1> : launch<SOBOL_OWEN, 1, 0>)(px, py, sb, rk, sc, o, n,
                                                                   frame_index, first, s);
+    } else if (mode == HASHED) {
+      (count == 2 ? launch<HASHED, 2> : launch<HASHED, 1>)(px, py, sb, rk, sc, o, n, frame_index,
+                                                            first, s);
     } else if (count == 2) {
       launch<BLUE_NOISE, 2>(px, py, sb, rk, sc, o, n, frame_index, first, s);
     } else {

@@ -22,11 +22,11 @@ and component, the blue-noise dimension, epoch and rotation); the JAX
 package carries the same values in per-pixel arrays. Only the pixel
 terms are tensors, and lane compaction gathers them.
 
-The blue-noise and Sobol-Owen draws go through kernel S1
-(``csrc/sampler.cu``): ``sampler_draws`` launches it for CUDA tensors,
-one launch a ``draw`` or ``draw2``, and runs the plain version
-``sampler_draws_ref`` for CPU tensors. The hashed mode stays plain
-PyTorch.
+Every draw goes through kernel S1 (``csrc/sampler.cu``), in every
+mode: ``sampler_draws`` launches it for CUDA tensors, one launch a
+``draw`` or ``draw2``, and runs the plain version ``sampler_draws_ref``
+for CPU tensors. The kernel reads each lane's pixel, so it serves the
+pixel grid and compacted lanes alike.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from .blue_noise import BlueNoiseTables
 
 M32 = 0xFFFFFFFF
 # S1's modes (the kernel's template argument).
-BLUE_NOISE, SOBOL_OWEN = 0, 1
+BLUE_NOISE, SOBOL_OWEN, HASHED = 0, 1, 2
 
 
 def jenkins_hash_u32(x):
@@ -195,9 +195,12 @@ def sampler_draws_ref(pix_x, pix_y, frame_index: int, first: int, count: int, mo
                       tables: Optional[BlueNoiseTables] = None):
     """S1's plain version: draws ``first`` .. ``first + count - 1``
     (``count`` 1 or 2) of every lane in ``mode`` (``BLUE_NOISE``, which
-    reads ``tables``, or ``SOBOL_OWEN``). Returns f32 of the lanes' shape,
-    with a last axis of 2 when ``count`` is 2."""
-    if mode == SOBOL_OWEN:
+    reads ``tables``, ``SOBOL_OWEN`` or ``HASHED``). Returns f32 of the
+    lanes' shape, with a last axis of 2 when ``count`` is 2."""
+    if mode == HASHED:
+        vals = [construct_float(jenkins_hash_u32_3(pix_x, pix_y, (frame_index + first + i) & M32))
+                for i in range(count)]
+    elif mode == SOBOL_OWEN:
         vals = [_sobol_owen_sample(pix_x, pix_y, frame_index, first + i) for i in range(count)]
     else:
         vals = [_blue_noise_sample(pix_x, pix_y, frame_index, first + i, tables)
@@ -215,7 +218,7 @@ def sampler_draws(pix_x, pix_y, frame_index: int, first: int, count: int, mode: 
     from ..kernels.build import LAUNCHES, check, load_library, require_cuda, stream_of
 
     lib = load_library()
-    if count not in (1, 2) or mode not in (BLUE_NOISE, SOBOL_OWEN):
+    if count not in (1, 2) or mode not in (BLUE_NOISE, SOBOL_OWEN, HASHED):
         raise ValueError(f"sampler_draws: count {count}, mode {mode}")
     px, py = pix_x.contiguous(), pix_y.contiguous()
     if px.dtype != torch.int64 or py.dtype != torch.int64 or px.shape != py.shape:
@@ -255,23 +258,22 @@ class RNG:
     sobol_owen: bool = False
 
     @property
-    def mode(self) -> Optional[int]:
-        """S1's mode, or None in hashed mode (Sobol-Owen wins, as in JAX)."""
+    def mode(self) -> int:
+        """S1's mode (Sobol-Owen wins, as in JAX; hashed without tables)."""
         if self.sobol_owen:
             return SOBOL_OWEN
-        return None if self.tables is None else BLUE_NOISE
+        return HASHED if self.tables is None else BLUE_NOISE
 
 
 def make_rng(height: int, width: int, frame_index: int, device,
              tables: Optional[BlueNoiseTables] = None, sobol_owen: bool = False) -> RNG:
     """A fresh per-frame RNG grid. ``tables`` selects blue noise,
-    ``sobol_owen`` the Owen-scrambled Sobol mode; S1 reads the pixel
-    grid, so those modes hold it contiguous."""
+    ``sobol_owen`` the Owen-scrambled Sobol mode, neither the hashed
+    mode; S1 reads the pixel grid, so it is held contiguous."""
     xs = torch.arange(width, dtype=torch.int64, device=device)
     ys = torch.arange(height, dtype=torch.int64, device=device)
     py, px = torch.meshgrid(ys, xs, indexing="ij")
-    if tables is not None or sobol_owen:
-        px, py = px.contiguous(), py.contiguous()
+    px, py = px.contiguous(), py.contiguous()
     return RNG(pix_x=px, pix_y=py, frame_index=int(frame_index) & M32, seed=0,
                tables=tables, sobol_owen=sobol_owen)
 
@@ -281,23 +283,14 @@ def draw(rng: RNG):
     draw of the mode's stream (hashed: hash(pixel, frame_index +
     counter)). Returns (value, new rng)."""
     seed = rng.seed + 1
-    if rng.mode is not None:
-        value = sampler_draws(rng.pix_x, rng.pix_y, rng.frame_index, seed, 1, rng.mode,
-                              rng.tables)
-    else:
-        value = construct_float(
-            jenkins_hash_u32_3(rng.pix_x, rng.pix_y, (rng.frame_index + seed) & M32))
-    return value, dataclasses.replace(rng, seed=seed)
+    return (sampler_draws(rng.pix_x, rng.pix_y, rng.frame_index, seed, 1, rng.mode, rng.tables),
+            dataclasses.replace(rng, seed=seed))
 
 
 def draw2(rng: RNG):
     """Two draws as a 2D sample (..., 2). In Sobol mode the counter is
     first rounded up to even, so the two values are the two components
-    of one Sobol pair; the sampler modes make both in one S1 launch."""
-    if rng.mode is None:
-        a, rng = draw(rng)
-        b, rng = draw(rng)
-        return torch.stack([a, b], dim=-1), rng
+    of one Sobol pair. Both come from one S1 launch."""
     seed = (rng.seed + 1) & ~1 if rng.sobol_owen else rng.seed
     values = sampler_draws(rng.pix_x, rng.pix_y, rng.frame_index, seed + 1, 2, rng.mode,
                            rng.tables)
