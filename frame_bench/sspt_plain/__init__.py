@@ -2,8 +2,9 @@
 
 Copied from ``unitysspathtracingurp_tpu_torch`` at the commit that
 defined the benchmark, cut to what the benchmark's configurations run
-(the hiz march on plain depth tiles, the hashed RNG, offline and
-real-time accumulation, À-Trous, reprojection, the probes) and without
+(the hiz march on plain and, for refraction and back faces, dual-layer
+depth tiles, the hashed RNG, offline and real-time accumulation,
+À-Trous, reprojection, the probes) and without
 ``kernels/`` and ``csrc/``: each kernel's entry here runs its plain
 PyTorch version on every device. Later changes to the port do not move
 this copy, so the benchmark's comparison and inputs stay fixed. The

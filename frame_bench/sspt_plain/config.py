@@ -6,9 +6,9 @@ defaults and ``validate()`` ranges. Three TPU-only lowering knobs
 (``march_unroll``, ``packed_temporal``, ``fused_schedule``) are gone:
 they changed how XLA/Mosaic compiled the same math, and PyTorch has no
 such choice to make. The fields of paths this copy leaves out
-(``hiz_home_prefix``, ``pallas_extract``, the samplers, refraction and
-backface) are kept so that a configuration reads the same here as in
-the port; choosing one of those paths raises.
+(``hiz_home_prefix``, ``pallas_extract``, the samplers) are kept so
+that a configuration reads the same here as in the port; choosing one
+of those paths raises.
 """
 
 from __future__ import annotations

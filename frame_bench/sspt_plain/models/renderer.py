@@ -13,12 +13,14 @@ Real-time modes (TEMPORAL / SPATIAL_TEMPORAL): trace with adaptive spp
 offline invalidation, as in the JAX package.
 
 A frozen copy of the port's plain path for the benchmark's reference:
-the hiz march only (K1's and R1's plain versions, as torch ops), the
-hashed RNG, the plain depth tiles. ``hdr_64bit=False`` is the
+the hiz march only (the plain versions of K1 / R1 on the plain depth
+tiles and, for refraction and back faces, of K4 / R1-dual on the dual
+ones, as torch ops) and the hashed RNG. ``hdr_64bit=False`` is the
 11-bit-float HDR target: a bf16 accumulator and color / emission
 history, and a 64-sample budget. ``bind_probes`` binds the two probes
 closest to the camera. What the copy leaves out (the parity march, the
-samplers, refraction and backface, upscaling, sharding) raises.
+home prefix, the unfused resolve, the samplers, upscaling, sharding)
+raises.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..config import MAX_SAMPLES_LOW_PRECISION, DenoiserType, PTConfig, PTSettin
 from ..gbuffer import GBuffers
 from ..ops.accumulate import OfflineAccumState, add_convergence_cue, offline_accumulate
 from ..ops.atrous import atrous_filter
+from ..ops.depth_tiles import variant_combos
 from ..ops.envprobe import ProbeSet, constant_probe
 from ..ops.pathtrace_hiz import build_tiles_for, trace_frame_hiz
 from ..ops.rng import advance_frame_index
@@ -124,8 +127,11 @@ class Renderer:
                                      device=self.device)
 
     def _depth_sources(self, gb: GBuffers):
-        """The depth image the plain tiles read: layer-1."""
-        return (gb.layer1_depth(),)
+        """Every depth image the tiles read: layer-1 for the plain layout,
+        each combo's test and back image for the dual one."""
+        if not (self.variants.backface_textures or self.variants.support_refraction):
+            return (gb.layer1_depth(),)
+        return tuple(img for pair in variant_combos(gb, self.variants) for img in pair)
 
     def _get_tiles(self, gb: GBuffers, cam: Camera):
         """Depth tiles, rebuilt only when a depth image they read (by

@@ -1,17 +1,19 @@
 """The hiz front half: march schedule + minitile filter + candidate pack.
 
 A frozen copy of the port's plain path for the benchmark's reference:
-``schedule_pack`` runs K1's plain version (``schedule_pack_ref``) on any
-device; the copy has no kernels. It is the torch port of the JAX
-package's unfused phases 1-3 (``ops/pathtrace_hiz.py:293-464``), in its
-plain-layout mode, streamed step by step instead of stacked over (S, N).
-The dual (K4) and home (K6) modes are not copied.
+``schedule_pack`` runs K1's plain version (``schedule_pack_ref``) and
+``schedule_pack_dual`` is K4's (the dual mode of ``DualDepthTiles``:
+the refraction / backface variants), on any device; the copy has no
+kernels. They are the torch port of the JAX package's unfused phases
+1-3 (``ops/pathtrace_hiz.py:293-464``), streamed step by step instead
+of stacked over (S, N). The home mode (K6) is not copied.
 
 Outputs, per lane n and slot j < K: ``pk_cum[j, n]`` (march distance),
 ``pk_scode[j, n]`` = step + 65*(prev_step + 1) + 8192*q40(thickness),
 ``pk_hist[j, n]`` = 4096*q40(last_cumdist) + q40(last_hitdepth), zero
 past the lane's count; ``n_cand[n]`` the count clamped to K. q40 is
-round-half-even to 2.5 cm.
+round-half-even to 2.5 cm. The dual mode adds ``pk_step[j, n]`` =
+q40(step), the step size the backed hit window needs (hlsl:181).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def schedule_scalars(cam) -> torch.Tensor:
 
 
 def march_kwargs(cfg, tiles, s_max: int) -> dict:
-    """The keyword arguments K1's plain version takes
+    """The keyword arguments K1's and K4's plain versions take
     from a ``PTConfig`` and the depth tiles, for ``s_max`` steps."""
     return dict(
         gh=tiles.height, gw=tiles.width, minis_x=tiles.minis_x, s_max=s_max,
@@ -79,7 +81,7 @@ def march_steps(ray_pos, ray_dir, dither, large_step, alive, scalars, *, gh, gw,
     """The march schedule of phase 1 (``pathtrace_hiz.py:293-360``), lanes
     on the leading axis: yields, for each step i = 1..s_max, the values
     the candidate filter and the pack read (position iterative, before
-    the step's post-test update). K1's plain version streams
+    the step's post-test update). K1's and K4's plain versions stream
     them; the diagnostic march stacks them over (S, N)."""
     n = ray_pos.shape[0]
     dev = ray_pos.device
@@ -131,32 +133,53 @@ def march_steps(ray_pos, ray_dir, dither, large_step, alive, scalars, *, gh, gw,
         marching = marching & ~exit_now
 
 
-def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
-                      mini_table, scalars, **params):
-    """Plain PyTorch version of K1: (pk_cum, pk_scode, pk_hist, n_cand),
-    N lanes."""
+def _pack_plain(ray_pos, ray_dir, dither, large_step, alive, is_back, mini_table,
+                scalars, dual, **params):
+    """The plain versions of K1 (``dual`` None) and K4 (``dual`` =
+    (combo, search, bmax_table, chunks_per_combo)), N lanes."""
     n = ray_pos.shape[0]
     dev = ray_pos.device
     k, minis_x = params["k"], params["minis_x"]
     th_cap = thickness_cap(params["marching_thickness"], params["thickness_growth"],
                            params["s_max"])
     mini_words = mini_table.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    if dual is not None:
+        combo, search, bmax_table, chunks_per_combo = dual
+        combo_off = combo.to(torch.int64) * (chunks_per_combo * 128)
+        bmax_words = bmax_table.reshape(-1).to(torch.int64) & 0xFFFFFFFF
     run = torch.zeros(n, dtype=torch.int64, device=dev)
     lane = torch.arange(n, device=dev)
     # Slot j of lane n lives at flat j*n + n; one spare word takes the
     # writes of non-packing lanes.
-    outs = [torch.zeros(k * n + 1, dtype=torch.float32, device=dev) for _ in range(3)]
+    n_fields = 3 if dual is None else 4
+    outs = [torch.zeros(k * n + 1, dtype=torch.float32, device=dev) for _ in range(n_fields)]
 
     for st in march_steps(ray_pos, ray_dir, dither, large_step, alive, scalars, **params):
         i, th, lcum, lhd, pidx = st["i"], st["th"], st["lcum"], st["lhd"], st["pidx"]
         ix, iy, hitd, proc = st["ix"], st["iy"], st["hitd"], st["proc"]
-        word = mini_words[mini_of(ix, iy, minis_x)]
-        mmin = f16_from_bits(word & 0xFFFF)
-        mmax = f16_from_bits(word >> 16)
-        cand = proc & (hitd >= mmin) & ((hitd - th <= mmax) | is_back)
+        mini = mini_of(ix, iy, minis_x)
+        if dual is None:
+            word = mini_words[mini]
+            mmin = f16_from_bits(word & 0xFFFF)
+            mmax = f16_from_bits(word >> 16)
+            cand = proc & (hitd >= mmin) & ((hitd - th <= mmax) | is_back)
+        else:
+            # Conservative dual rule (pathtrace_hiz.py:398-404): the backed
+            # window's margin is max(th, step); search lanes and front
+            # rays below the minitile's max back depth escape the window.
+            mini = mini + combo_off
+            word = mini_words[mini]
+            mmin = f16_from_bits(word & 0xFFFF)
+            umax = f16_from_bits(word >> 16)
+            bmax = f16_from_bits(bmax_words[mini] & 0xFFFF)
+            margin = torch.maximum(th, st["step"])
+            cand = proc & (hitd >= mmin) & (
+                (hitd - margin <= umax) | search | (hitd <= bmax))
         scode = float(i - 1) + 65.0 * (pidx + 1.0) + q40(th, th_cap) * 8192.0
         hist = q40(lcum, 4095.0) * 4096.0 + q40(lhd, 4095.0)
         vals = (st["cum"], scode, hist)
+        if dual is not None:
+            vals = vals + (q40(st["step"], 4095.0),)
         pack = cand & (run < k)
         dst = torch.where(pack, run * n + lane, torch.full_like(lane, k * n))
         for out, val in zip(outs, vals):
@@ -168,8 +191,25 @@ def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
     return (*pk, n_cand)
 
 
+def schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive, is_back,
+                      mini_table, scalars, **params):
+    """Plain PyTorch version of K1: (pk_cum, pk_scode, pk_hist, n_cand)."""
+    return _pack_plain(ray_pos, ray_dir, dither, large_step, alive, is_back,
+                       mini_table, scalars, None, **params)
+
+
 def schedule_pack(ray_pos, ray_dir, dither, large_step, alive, is_back,
                   mini_table, scalars, **params):
     """K1's entry in this copy: ``schedule_pack_ref`` on any device."""
     return schedule_pack_ref(ray_pos, ray_dir, dither, large_step, alive,
                              is_back, mini_table, scalars, **params)
+
+
+def schedule_pack_dual(ray_pos, ray_dir, dither, large_step, alive, combo, search,
+                       mini_table, bmax_table, scalars, *, chunks_per_combo, **params):
+    """Plain PyTorch version of K4, on any device: (pk_cum, pk_scode,
+    pk_hist, pk_step, n_cand). ``combo`` (N,) int picks each lane's table
+    rows, ``search`` (N,) bool marks the lanes that may run the binary
+    search."""
+    return _pack_plain(ray_pos, ray_dir, dither, large_step, alive, None, mini_table,
+                       scalars, (combo, search, bmax_table, chunks_per_combo), **params)

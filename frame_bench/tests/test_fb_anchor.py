@@ -2,8 +2,9 @@
 implementation the port was written from and that shares none of the
 reference's code, on the CPU at 64x64:
 
-- the inputs: the scene, cameras and G-buffers of every cell's poses and
-  the baked probes equal the JAX fixtures';
+- the inputs: the scene, cameras and G-buffers of every cell's poses
+  (with the glass layers: transparent, layer-1 depth, back depth and
+  normals) and the baked probes equal the JAX fixtures';
 - the frames: from the same inputs, ``sspt_plain``'s ``Renderer`` and the
   JAX ``Renderer`` render the first frames of every cell (the offline
   accumulation with and without probes, the real-time history through
@@ -15,6 +16,7 @@ reference's code, on the CPU at 64x64:
 Only this test imports JAX; no run of the benchmark does.
 """
 
+import dataclasses
 import enum
 import os
 
@@ -43,6 +45,7 @@ CELLS = [  # (cell, frames)
     ("boxscene_offline_1080p.probe_lit", 2),
     ("classroom_spatial_temporal_1080p.moving", 5),
     ("classroom_spatial_temporal_1080p.still", 4),
+    ("boxscene_glass_spatial_temporal_1080p.moving", 3),
 ]
 
 
@@ -99,16 +102,31 @@ def test_inputs_match_the_jax_fixtures(cell_name, tmp_path, pair_cell):
     offsets = cell.traffic["poses"]
     cams = [_jax_camera(cell.config, o) for o in offsets]
     realtime = cell.config["settings"]["denoiser"] in ("TEMPORAL", "SPATIAL_TEMPORAL")
+    same = [_jax_tree(jcamera.Camera, p.camera) for p in inputs.poses]
     for i, (pose, cam) in enumerate(zip(inputs.poses, cams)):
         for k, v in pose.camera.items():
             np.testing.assert_allclose(v, np.asarray(getattr(cam, k)), rtol=1e-6, atol=1e-6,
                                        err_msg=k)
-        gb = jfixtures.rasterize_gbuffers(sc, cam, *SIZE, prev_cam=cams[i - 1] if realtime else None)
+        backface = scene_cfg.get("backface", False)
+        gb = jfixtures.rasterize_gbuffers(sc, cam, *SIZE, with_backface=backface,
+                                          prev_cam=cams[i - 1] if realtime else None)
         got = pose.gbuffers
-        assert set(got) == {k for k in got if getattr(gb, k) is not None}
+        assert set(got) == {f.name for f in dataclasses.fields(gb)
+                            if getattr(gb, f.name) is not None}
+        # The glass layers (transparent layer, layer-1 depth, back depth
+        # and normals) are there exactly when the configuration has them.
+        assert ("t_surface_type" in got) == scene_cfg["build"].get("with_glass", False)
+        assert ("back_depth" in got) == backface
+        # From the copy's own camera, the JAX fixture's layers are the
+        # copy's bit for bit, every one of them.
+        gb_same = jfixtures.rasterize_gbuffers(sc, same[i], *SIZE, with_backface=backface,
+                                               prev_cam=same[i - 1] if realtime else None)
+        for k, v in got.items():
+            assert np.array_equal(v, np.asarray(getattr(gb_same, k))), k
         assert np.abs(got["depth"] - np.asarray(gb.depth)).max() < 1e-6
-        # The JAX fixture may intersect through its native rasterizer: a
-        # few sphere pixels' normals differ by ~1e-4 at this size.
+        # From the JAX package's own camera, which differs from the copy's
+        # by an ulp or two (below), a few sphere pixels' normals differ by
+        # ~1e-4 at this size.
         dn = np.abs(got["normal"] - np.asarray(gb.normal)).max(-1)
         assert dn.max() < 1e-3 and (dn > 1e-5).mean() < 0.005
         for k in ("albedo", "gbuffer1", "smoothness", "emission", "material_flags"):

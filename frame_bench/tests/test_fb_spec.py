@@ -102,3 +102,29 @@ def test_traffic_passes_a_key_only_when_the_scene_changes():
     assert moving.scene_key(full, 0) is None and moving.pose(3) == 1
     with pytest.raises(ValueError):
         Traffic({"poses": [0.0], "restart": "sometimes"})
+
+
+def _listed_cells(test_file: str, name: str) -> set:
+    """The cell names of the (cell, frames) list ``name`` in a test file,
+    read from its source: importing the anchor would load JAX."""
+    import ast
+
+    tree = ast.parse((BENCH_DIR / "tests" / test_file).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == name
+                                                for t in node.targets):
+            return {cell for cell, _ in ast.literal_eval(node.value)}
+    raise AssertionError(f"{test_file} has no {name}")
+
+
+def test_every_config_is_anchored():
+    """Every configuration file, whether or not BENCHMARK.json lists it, has
+    a cell in the anchor against the JAX package and in the bit-for-bit
+    test against the port's plain path."""
+    configs = {p.stem for p in (BENCH_DIR / "configs").glob("*.json")}
+    for test_file, name in (("test_fb_anchor.py", "CELLS"), ("test_fb_reference.py", "CASES")):
+        cells = _listed_cells(test_file, name)
+        assert configs <= {c.rsplit(".", 1)[0] for c in cells}, test_file
+        for c in cells:
+            config, traffic = c.rsplit(".", 1)
+            assert (BENCH_DIR / "traffic" / f"{traffic}.json").exists(), c
