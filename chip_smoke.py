@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a);
+  2. build the hand-written kernels (csrc/*.cu, nvcc, sm_90a); B1's four
+     instances must spill no registers;
   3. K1 and R1 against their plain PyTorch versions on the card, at 256^2
      and 1920x1080, on BoxScene bounce-0 reflection rays; then K4 and
      R1's dual mode against theirs on the glass box with the refraction +
@@ -32,7 +33,10 @@ Phases (any failure exits non-zero and prints no result line):
      (the RNG's draws) against its plain version, bit for bit, at 256^2
      and 1080p: the hashed, blue-noise and Sobol-Owen modes, draw and
      draw2 after an odd and an even counter, frames in epoch 0 and
-     epoch 1, on the pixel grid and on a compacted gather of it;
+     epoch 1, on the pixel grid and on a compacted gather of it; B1 (each
+     bounce's BRDF) against its plain version, bit for bit, on every
+     call of a classroom and of a glass real-time frame at 256^2 and
+     1080p, with each call's time against its bound at 1080p;
   4. one whole frame of each of the headline, dual, home, parity
      headline, parity dual, spp-2 dithered headline, oct-normals +
      forward-only headline, blue-noise and Sobol-Owen headlines and the
@@ -47,7 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
   5. the main paths, each with the launch counts set to 0 just before
      and read just after it (every path draws through S1, one launch a
      draw or draw2: 2 + 3 a bounce for each sample, and the step
-     dither's draw): Renderer.render_frame, OFFLINE, 1920x1080,
+     dither's draw, and one B1 launch for bounce 0 and each bounce of
+     each sample): Renderer.render_frame, OFFLINE, 1920x1080,
      (a) the headline BoxScene with PTConfig.boxscene_headline(), (b)
      the glass BoxScene with refraction + DepthNormals thickness, (c)
      the headline with the home prefix and hiz_home_round_cap=0.4, (d)
@@ -59,7 +64,10 @@ Phases (any failure exits non-zero and prints no result line):
      1920x1080, 2 bounces, spp 1 adaptive to 4, hiz: (g) TEMPORAL with
      a static camera (8 K1, 8 R1, 32 S1 and 1 T1 launches a frame) and (h)
      SPATIAL_TEMPORAL at MEDIUM with the camera alternating between two
-     positions (the same and 3 A1); then (i) the headline with blue
+     positions (the same and 3 A1), and the glass real-time frame (the
+     glass and mirror BoxScene, SPATIAL_TEMPORAL, refraction +
+     DepthNormals, 4 bounces: 16 K4, 16 R1-dual, 56 S1, 20 B1, 3 A1 and
+     1 T1 launches a frame); then (i) the headline with blue
      noise and (j) with Sobol-Owen (4 K1, 4 R1 and 14 S1 launches a
      frame, as the hashed headline) and (k) the headline lit by the
      BoxScene's box-projected probes (resolution 32, the two closest
@@ -173,24 +181,32 @@ KERNELS = {
         source="unitysspathtracingurp_tpu_torch/csrc/sampler.cu",
         replaces="unitysspathtracingurp_tpu/ops/rng.py:118, :238",
     ),
+    "brdf": dict(
+        source="unitysspathtracingurp_tpu_torch/csrc/brdf.cu",
+        replaces="none (unitysspathtracingurp_tpu/ops/pathtrace.py evaluate_brdf, XLA)",
+    ),
 }
 # The kernels each path launches (the others must stay at 0 there). S1
 # draws the RNG of every path, in its hashed mode unless the path names
-# another sampler.
+# another sampler; B1 evaluates every path's BRDF.
 PATHS = {
-    "headline": ("schedule_pack", "resolve_rounds", "sampler"),
-    "dual": ("schedule_pack_dual", "resolve_rounds_dual", "sampler"),
-    "home": ("schedule_pack_home", "schedule_pack", "resolve_rounds", "sampler"),
-    "diagnostic": ("broadcast_table_select", "pack_by_slot", "resolve_rounds", "sampler"),
-    "extract": ("schedule_pack", "extract_chain", "rowwise_select", "sampler"),
-    "parity": ("ray_march", "sampler"),
-    "parity_dual": ("ray_march", "sampler"),
-    "dither2": ("schedule_pack", "resolve_rounds", "sampler"),
-    "realtime": ("schedule_pack", "resolve_rounds", "temporal", "sampler"),
-    "spatial_temporal": ("schedule_pack", "resolve_rounds", "atrous", "temporal", "sampler"),
-    "blue_noise": ("schedule_pack", "resolve_rounds", "sampler"),
-    "sobol_owen": ("schedule_pack", "resolve_rounds", "sampler"),
-    "probes": ("schedule_pack", "resolve_rounds", "sampler"),
+    "headline": ("schedule_pack", "resolve_rounds", "sampler", "brdf"),
+    "dual": ("schedule_pack_dual", "resolve_rounds_dual", "sampler", "brdf"),
+    "home": ("schedule_pack_home", "schedule_pack", "resolve_rounds", "sampler", "brdf"),
+    "diagnostic": ("broadcast_table_select", "pack_by_slot", "resolve_rounds", "sampler",
+                   "brdf"),
+    "extract": ("schedule_pack", "extract_chain", "rowwise_select", "sampler", "brdf"),
+    "parity": ("ray_march", "sampler", "brdf"),
+    "parity_dual": ("ray_march", "sampler", "brdf"),
+    "dither2": ("schedule_pack", "resolve_rounds", "sampler", "brdf"),
+    "realtime": ("schedule_pack", "resolve_rounds", "temporal", "sampler", "brdf"),
+    "spatial_temporal": ("schedule_pack", "resolve_rounds", "atrous", "temporal", "sampler",
+                         "brdf"),
+    "glass_spatial_temporal": ("schedule_pack_dual", "resolve_rounds_dual", "atrous",
+                               "temporal", "sampler", "brdf"),
+    "blue_noise": ("schedule_pack", "resolve_rounds", "sampler", "brdf"),
+    "sobol_owen": ("schedule_pack", "resolve_rounds", "sampler", "brdf"),
+    "probes": ("schedule_pack", "resolve_rounds", "sampler", "brdf"),
 }
 # The G-buffer P1's bound counts: 4 B a texel of each depth image in use.
 P1_LANE_IN = 12 + 12 + 12 + 4 + 4 + 4  # pos, dir, view dir, inside, dither, large step
@@ -249,10 +265,10 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> d
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the hiz march and the RNG's draws through the kernels' plain
-    PyTorch versions."""
+    """Route the hiz march, the RNG's draws and the BRDF evaluation
+    through the kernels' plain PyTorch versions."""
     from unitysspathtracingurp_tpu_torch.ops import fused_schedule, pallas_gather, pathtrace_hiz
-    from unitysspathtracingurp_tpu_torch.ops import rng
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace, rng
 
     plain = {
         "schedule_pack": fused_schedule.schedule_pack_ref,
@@ -267,16 +283,16 @@ def plain_kernels():
     }
     names = tuple(plain)
     saved = [getattr(pathtrace_hiz, n) for n in names]
-    sampler = rng.sampler_draws
+    sampler, brdf_lanes = rng.sampler_draws, pathtrace.brdf_lanes
     for name, fn in plain.items():
         setattr(pathtrace_hiz, name, fn)
-    rng.sampler_draws = rng.sampler_draws_ref
+    rng.sampler_draws, pathtrace.brdf_lanes = rng.sampler_draws_ref, pathtrace.brdf_lanes_ref
     try:
         yield
     finally:
         for n, fn in zip(names, saved):
             setattr(pathtrace_hiz, n, fn)
-        rng.sampler_draws = sampler
+        rng.sampler_draws, pathtrace.brdf_lanes = sampler, brdf_lanes
 
 
 @functools.lru_cache(maxsize=None)
@@ -1819,6 +1835,123 @@ def check_extract_frame(h, w, dev, path: str):
     gate(equal, f"extract frame bit-equal to the default frame ({path})")
 
 
+# ---------------------------------------------------------------- B1
+
+
+def brdf_calls(path: str, h, w, dev) -> list:
+    """The arguments of every ``brdf_lanes`` call of one real-time frame
+    of ``path`` (its first pose, a fresh renderer), on the kernels: bounce
+    0 and each bounce of the 4 adaptive samples, in order."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+
+    r = realtime_renderer(path, h, w, dev)
+    gb, cam = realtime_frames(path, h, w, dev)[0]
+    calls, real = [], pt.brdf_lanes
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    pt.brdf_lanes = spy
+    try:
+        r.render_frame(gb, cam)
+        torch.cuda.synchronize()
+    finally:
+        pt.brdf_lanes = real
+    return calls
+
+
+def b1_bound(args) -> dict:
+    """B1's least time on one call's inputs: every lane reads its ray
+    direction and hit flag and writes 48 B; a miss lane reads its ray
+    origin and the probe radiance; a hit lane reads its energy, the
+    surface (normal, albedo, specular, emission, smoothness; ior and
+    inside state under refraction), the hit position and three draws,
+    and a lane that refracts on its way out of an object its hit
+    distance. A lane-constant input (zero strides) counts once."""
+    import torch
+
+    refr, _, ray_dir, ray_pos, energy, hit, surf, hit_pos, hit_dist, env, random, roulette = args
+    lanes = ray_dir.shape[:-1]
+    n = lanes.numel()
+    hit = hit.expand(lanes)
+    need = {"all": n, "hit": float(hit.sum()), "miss": float((~hit).sum())}
+    if refr:
+        refract_p = torch.where(surf.ior != -1.0, torch.amax(surf.albedo, dim=-1), 0.0)
+        exits = hit & (surf.inside_object == 2.0) & (refract_p > 0.0) & (roulette < refract_p)
+        need["exit"] = float(exits.sum())
+
+    def nbytes(t, comps, who):
+        t = t.expand(lanes + ((comps,) if comps else ()))
+        distinct = 1
+        for size, stride in zip(lanes, t.stride()):
+            distinct *= size if stride else 1
+        return max(comps, 1) * t.element_size() * min(distinct, need[who])
+
+    fields = [(ray_dir, 3, "all"), (hit, 0, "all"), (ray_pos, 3, "miss"), (env, 3, "miss"),
+              (energy, 3, "hit"), (surf.normal, 3, "hit"), (surf.albedo, 3, "hit"),
+              (surf.specular, 3, "hit"), (surf.emission, 3, "hit"), (surf.smoothness, 0, "hit"),
+              (hit_pos, 3, "hit"), (random, 2, "hit"), (roulette, 0, "hit")]
+    if refr:
+        fields += [(surf.ior, 0, "hit"), (surf.inside_object, 0, "hit"),
+                   (hit_dist, 0, "exit")]
+    return dict(bound(sum(nbytes(*f) for f in fields) + 48 * n, 0.0),
+                hit_share=need["hit"] / max(n, 1))
+
+
+def check_brdf(h, w, dev, timing: bool):
+    """Phase 3: B1 against its plain version, bit for bit, on every call
+    of a classroom real-time frame (12: bounce 0's lane-constant origin,
+    hit flag and probe radiance, then real hits and misses) and of a
+    glass real-time frame (20, with the refraction lobe, insideObject 0 /
+    1 / 2 and DepthNormals back faces). At 1080p also each call's time
+    against its bound, and the plain version's."""
+    import torch
+
+    from unitysspathtracingurp_tpu_torch.ops import pathtrace as pt
+
+    out = {}
+    for path in ("spatial_temporal", "glass_spatial_temporal"):
+        calls = brdf_calls(path, h, w, dev)
+        equal, err = True, 0.0
+        for args in calls:
+            got, ref = pt.brdf_lanes(*args), pt.brdf_lanes_ref(*args)
+            torch.cuda.synchronize()
+            equal = equal and all(bits_equal(a, b) for a, b in zip(got, ref))
+            err = max([err] + [(a - b).abs().nan_to_num(0.0).max().item()
+                               for a, b in zip(got, ref)])
+        print(f"phase 3 B1 brdf {w}x{h} on the {PATH_NAMES[path]} frame: {len(calls)} calls, "
+              f"all 4 outputs equal {equal}, max abs err {err:.3e}, hit lanes "
+              + ", ".join(f"{b1_bound(a)['hit_share']:.3f}" for a in calls))
+        gate(equal, f"B1 bit-exact against its plain version ({path}, {w}x{h})")
+        gate(len(calls) == 4 * (1 + realtime_settings(path).maximum_depth),
+             f"B1 calls a frame ({path}: {len(calls)})")
+        if not timing:
+            continue
+        rows = []
+        for args in calls:
+            o = b1_bound(args)
+            o["ms"] = cuda_ms(lambda a=args: pt.brdf_lanes(*a), 20)
+            o["plain_ms"] = cuda_ms(lambda a=args: pt.brdf_lanes_ref(*a), 3)
+            rows.append(o)
+        total, t_bound = sum(o["ms"] for o in rows), sum(o["bound_ms"] for o in rows)
+        print(f"phase 3 B1 {w}x{h} on the {PATH_NAMES[path]} frame's calls: "
+              + ", ".join(f"{o['ms']:.4f}" for o in rows)
+              + f" ms; a frame {total:.4f} ms, bound {t_bound:.4f} ms (bytes; share "
+              f"{t_bound / total:.3f}), plain PyTorch {sum(o['plain_ms'] for o in rows):.4f} ms")
+        o = rows[0]
+        print(f"phase 3 B1 {w}x{h} bounce 0 ({PATH_NAMES[path]}): {o['ms']:.4f} ms, bound "
+              f"{o['bound_ms']:.4f} ms ({o['bound_by']}; share {o['bound_ms'] / o['ms']:.3f}), "
+              f"plain PyTorch {o['plain_ms']:.4f} ms, library none")
+        if path == "spatial_temporal":
+            # The kernels line: the classroom frame's bounce 0 (every lane
+            # a hit, the origin, flag and probe lane-constant).
+            out["brdf"] = dict(rows[0], max_abs_err=err)
+    return out
+
+
 # ---------------------------------------------------------------- the real-time path
 
 # f32 operations of one pixel that A1 filters: 9 taps x (4 weights of
@@ -1846,13 +1979,31 @@ def classroom(h, w, dev, jitter=0.0, prev_jitter=None):
     return gb, cam
 
 
+@functools.lru_cache(maxsize=None)
+def glass_box(h, w, dev, jitter=0.0, prev_jitter=None):
+    """The glass benchmark cell's BoxScene (the glass and the mirror
+    sphere, the backface pass) at ``jitter``, with its motion vectors to
+    ``prev_jitter``'s camera. Built once per size and camera pair."""
+    from unitysspathtracingurp_tpu_torch.models import fixtures, scene
+
+    cam = fixtures.box_scene_camera(h, w, jitter=jitter, device=dev)
+    prev = (None if prev_jitter is None
+            else fixtures.box_scene_camera(h, w, jitter=prev_jitter, device=dev))
+    gb = fixtures.rasterize_gbuffers(scene.build_box_scene(with_glass=True, with_mirror=True),
+                                     cam, h, w, device=dev, with_backface=True, prev_cam=prev)
+    return gb, cam
+
+
 def realtime_frames(path: str, h, w, dev):
     """The (G-buffer, camera) frames a real-time path cycles through:
     (g) "realtime" the static camera (motion exactly 0); (h)
     "spatial_temporal" the camera alternating between jitter 0 and 0.05,
-    each G-buffer with its motion to the other."""
+    each G-buffer with its motion to the other; "glass_spatial_temporal"
+    the same on the glass box."""
     import torch
 
+    if path == "glass_spatial_temporal":
+        return [glass_box(h, w, dev, 0.0, 0.05), glass_box(h, w, dev, 0.05, 0.0)]
     gb0, cam0 = classroom(h, w, dev, 0.0, 0.05)
     if path in ("realtime", "realtime_blue"):
         return [(dataclasses.replace(gb0, motion=torch.zeros_like(gb0.motion)), cam0)]
@@ -1863,14 +2014,21 @@ def realtime_settings(path: str):
     """The classroom cell (scripts/bench_suite.py:169-213): 2 bounces, spp
     1 (adaptive to 4), 24 steps, no dither; TEMPORAL on (g),
     SPATIAL_TEMPORAL at MEDIUM (3 À-Trous passes) on (h); "realtime_blue"
-    is (g) with blue noise."""
-    from unitysspathtracingurp_tpu_torch.config import DenoiserType, NoiseMethod, PTSettings
+    is (g) with blue noise; "glass_spatial_temporal" is (h) with the glass
+    cell's 4 bounces, refraction and DepthNormals back faces."""
+    from unitysspathtracingurp_tpu_torch.config import (
+        DenoiserType, NoiseMethod, PTSettings, ThicknessMode,
+    )
 
     mode = (DenoiserType.TEMPORAL if path in ("realtime", "realtime_blue")
             else DenoiserType.SPATIAL_TEMPORAL)
     noise = NoiseMethod.BLUE_NOISE if path == "realtime_blue" else NoiseMethod.HASHED_RANDOM
-    return PTSettings(maximum_depth=2, samples_per_pixel=1, maximum_steps=24,
-                      denoiser=mode, dithering=False, noise_method=noise)
+    s = PTSettings(maximum_depth=2, samples_per_pixel=1, maximum_steps=24, denoiser=mode,
+                   dithering=False, noise_method=noise)
+    if path == "glass_spatial_temporal":
+        s = dataclasses.replace(s, maximum_depth=4, support_refraction=True,
+                                accurate_thickness=ThicknessMode.DEPTH_NORMALS)
+    return s
 
 
 def realtime_renderer(path: str, h, w, dev):
@@ -2082,10 +2240,13 @@ def check_adaptive_trace(h, w, dev):
 
 def realtime_main_path(dev, card, path: str):
     """Phase 5: Renderer.render_frame at 1080p, TEMPORAL on (g) or
-    SPATIAL_TEMPORAL on (h); the launch counts set to 0 just before and
-    read just after. Each frame marches max(ray_count_low_sample, spp)
-    samples x 2 bounces (K1 and R1 each), draws 2 + 3 x 2 times a sample
-    (S1 each), runs À-Trous 2q + 1 times on (h) and T1 once."""
+    SPATIAL_TEMPORAL on (h) and on the glass box; the launch counts set
+    to 0 just before and read just after. Each frame marches
+    max(ray_count_low_sample, spp) samples x its bounces (K1 and R1
+    each; K4 and R1-dual on the glass box), draws 2 + 3 x bounces times a
+    sample (S1 each), evaluates the BRDF 1 + bounces times a sample (B1
+    each), runs À-Trous 2q + 1 times on (h) and the glass box and T1
+    once."""
     import torch
 
     from unitysspathtracingurp_tpu_torch.kernels.build import LAUNCHES
@@ -2098,8 +2259,10 @@ def realtime_main_path(dev, card, path: str):
     marches = samples * s.maximum_depth
     # One S1 launch a draw or draw2, every sample at full width.
     draws = samples * (2 + 3 * s.maximum_depth) + int(s.dithering)
-    expect = dict(schedule_pack=marches, resolve_rounds=marches, atrous=r.spatial_passes,
-                  temporal=1, sampler=draws)
+    dual = "_dual" if s.support_refraction else ""
+    expect = {f"schedule_pack{dual}": marches, f"resolve_rounds{dual}": marches,
+              "atrous": r.spatial_passes, "temporal": 1, "sampler": draws,
+              "brdf": samples * (1 + s.maximum_depth)}
     gate(set(k for k, v in expect.items() if v) == set(PATHS[path]), f"{path} kernel set")
     step = {"i": 0}
 
@@ -2155,6 +2318,8 @@ PATH_NAMES = {
     "dither2": "headline, spp 2, step dithering (hiz)",
     "realtime": "(g) classroom_realtime (TEMPORAL, static camera)",
     "spatial_temporal": "(h) classroom_spatial_temporal (SPATIAL_TEMPORAL, moving camera)",
+    "glass_spatial_temporal": ("glass real-time (SPATIAL_TEMPORAL, refraction + DepthNormals, "
+                               "4 bounces, moving camera)"),
     "realtime_blue": "(g) with blue noise (TEMPORAL, static camera)",
     "blue_noise": "(i) blue-noise headline (hiz, S1)",
     "sobol_owen": "(j) Sobol-Owen headline (hiz, S1)",
@@ -2197,6 +2362,8 @@ def main_path(dev, card, path: str):
     # roulette, then each bounce's draw2, lobe roulette and Russian
     # roulette (and the step dither's draw).
     expect["sampler"] = (2 + 3 * bounces) * s.samples_per_pixel + int(s.dithering)
+    # One B1 launch for bounce 0 and each bounce.
+    expect["brdf"] = (1 + bounces) * s.samples_per_pixel
     LAUNCHES.clear()
     per_frame = []
     image = r.render_frame(gb, cam)  # warm-up: builds the depth tiles
@@ -2322,7 +2489,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from unitysspathtracingurp_tpu_torch.kernels.build import load_library, resource_usage
+        from unitysspathtracingurp_tpu_torch.kernels.build import (
+            library_sass_loops, load_library, resource_usage,
+        )
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -2339,6 +2508,13 @@ def main() -> int:
         print(f"phase 2 ptxas {r['kernel']}: {r['regs']} registers, {r['smem']} B static "
               f"shared, spill stores {r['spill_stores']} B, spill loads {r['spill_loads']} B, "
               f"stack {r['stack']} B")
+    b1 = [r for r in resource_usage() if r["kernel"].startswith("brdf_kernel<")]
+    gate(len(b1) == 4 and not any(r["spill_stores"] or r["spill_loads"] for r in b1),
+         f"B1's four instances spill no registers: {b1}")
+    for name, v in sorted(library_sass_loops().items()):
+        if name.startswith("brdf_kernel<"):
+            print(f"phase 2 B1 SASS {name} (<refraction, Disney>): {v['instructions']} "
+                  f"instructions, loops {v['loops']}")
 
     def mark(phase):
         print(f"chip_smoke: {phase} done at {time.perf_counter() - t0:.1f} s")
@@ -2359,6 +2535,8 @@ def main() -> int:
         stats.update(check_realtime_kernels(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     for h, w in ((256, 256), (H_FULL, W_FULL)):
         stats.update(check_sampler(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
+    for h, w in ((256, 256), (H_FULL, W_FULL)):
+        stats.update(check_brdf(h, w, dev, timing=(h, w) == (H_FULL, W_FULL)))
     mark("phase 3")
     for path in ("headline", "dual", "home", "parity", "parity_dual", "dither2", "octfwd",
                  "blue_noise", "sobol_owen", "probes"):
@@ -2380,7 +2558,7 @@ def main() -> int:
         counts = main_path(dev, card, path)
         for name in PATHS[path]:
             launches.setdefault(name, counts.get(name, 0))
-    for path in ("realtime", "spatial_temporal"):
+    for path in ("realtime", "spatial_temporal", "glass_spatial_temporal"):
         counts = realtime_main_path(dev, card, path)
         for name in PATHS[path]:
             launches.setdefault(name, counts.get(name, 0))

@@ -1,7 +1,7 @@
 """The CUDA kernels (K1, R1, K4, R1's dual mode, K6, K2, K3, R1's
 state-in form, K5, K7, P1 (the parity march), A1 (À-Trous), T1
-(temporal reprojection) and S1 (the RNG's hashed, blue-noise and
-Sobol-Owen draws)) against their plain PyTorch versions, the unfused resolve rounds (K5 +
+(temporal reprojection), S1 (the RNG's hashed, blue-noise and
+Sobol-Owen draws) and B1 (a bounce's BRDF)) against their plain PyTorch versions, the unfused resolve rounds (K5 +
 K7) against R1, and probe sampling against the CPU, on the card.
 
 Marked ``cuda``: each test skips where torch sees no CUDA device. On a
@@ -1020,20 +1020,20 @@ def test_sampler_draw_stream_through_the_rng(sampler_case, mode, frame_index):
 # Per real-time scene: the scene, its camera, whether it rasterizes back
 # faces, its settings beyond the shared ones, and the kernel launches of
 # one frame (adaptive spp: 4 samples x bounces marches, 4 x (2 + 3 x
-# bounces) draws).
+# bounces) draws, 4 x (1 + bounces) BRDF evaluations).
 REALTIME_SCENES = {
     "classroom": dict(
         scene=scene.build_classroom_scene, camera=fixtures.classroom_camera,
         backface=False, settings=dict(maximum_depth=2),
         launches={"schedule_pack": 8, "resolve_rounds": 8, "atrous": 3, "temporal": 1,
-                  "sampler": 32}),
+                  "sampler": 32, "brdf": 12}),
     "glass": dict(
         scene=functools.partial(scene.build_box_scene, with_glass=True, with_mirror=True),
         camera=fixtures.box_scene_camera, backface=True,
         settings=dict(maximum_depth=4, support_refraction=True,
                       accurate_thickness=ThicknessMode.DEPTH_NORMALS),
         launches={"schedule_pack_dual": 16, "resolve_rounds_dual": 16, "atrous": 3,
-                  "temporal": 1, "sampler": 56}),
+                  "temporal": 1, "sampler": 56, "brdf": 20}),
 }
 
 
@@ -1041,8 +1041,9 @@ REALTIME_SCENES = {
 def test_hashed_realtime_frames_through_s1_bit_exact(scene_name):
     """Three frames of a 64x96 SPATIAL_TEMPORAL renderer (spp 1 adaptive
     to 4, hashed noise, the camera alternating between two poses) draw
-    through S1 and equal bit for bit (image and history counts) the same
-    frames with the plain version drawing. The classroom runs 2 bounces
+    through S1 and evaluate the BRDF through B1, and equal bit for bit
+    (image and history counts) the same frames with the plain versions
+    drawing and evaluating. The classroom runs 2 bounces
     on the plain hiz path (K1 / R1); the glass box, with its glass and
     mirror spheres, 4 bounces with refraction and DepthNormals back faces
     on the dual-layer path (K4 / R1-dual, A1 and T1 with refraction).
@@ -1066,20 +1067,21 @@ def test_hashed_realtime_frames_through_s1_bit_exact(scene_name):
                    noise_method=NoiseMethod.HASHED_RANDOM, **case["settings"])
     fast, plain = (Renderer(s, h, w, probes=ProbeSet(probe0=constant_probe(
         [0.05, 0.06, 0.08], device=dev)), kernel="hiz", device=dev) for _ in range(2))
-    kernel = rng.sampler_draws
+    kernel, brdf_kernel = rng.sampler_draws, pt.brdf_lanes
     for i in range(3):
         gb, cam = frames[i % 2]
         before = LAUNCHES.copy()
         a = fast.render_frame(gb, cam)
         torch.cuda.synchronize()
         assert dict(LAUNCHES - before) == case["launches"]
-        rng.sampler_draws = rng.sampler_draws_ref
+        rng.sampler_draws, pt.brdf_lanes = rng.sampler_draws_ref, pt.brdf_lanes_ref
         try:
             b = plain.render_frame(gb, cam)
         finally:
-            rng.sampler_draws = kernel
+            rng.sampler_draws, pt.brdf_lanes = kernel, brdf_kernel
         torch.cuda.synchronize()
-        assert LAUNCHES["sampler"] == before["sampler"] + case["launches"]["sampler"]
+        for name in ("sampler", "brdf"):
+            assert LAUNCHES[name] == before[name] + case["launches"][name]
         assert torch.equal(_bits(a), _bits(b))
         assert torch.equal(_bits(fast.temporal_state.history_sample),
                            _bits(plain.temporal_state.history_sample))
@@ -1108,3 +1110,117 @@ def test_probe_sampling_on_the_card_within_an_ulp(sampler_case):
     mips = envprobe.build_probe_mips(probes.probe0.texture.to(dev))
     for a, b in zip(mips, probes.probe0.mips):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------- B1 (BRDF)
+
+BRDF_LAYOUTS = ("grid", "compacted", "bounce 0", "strided", "flat")
+
+
+def _brdf_args(layout: str, dev):
+    """``brdf_lanes``' inputs after the draws, every case mixed into one
+    set of lanes: hits and misses, insideObject 0 / 1 / 2, opaque and
+    refractive surfaces (ior 1-2, so eta > 1 and total internal
+    reflection on the lanes past the critical angle), smoothness 1 and
+    around roughness 0.001, albedo 0 (refract_p 0) and a channel of 1
+    (spec_p 0 under refraction), specular below the 0.04 clamp, normals
+    facing away, z = +0 / -0 normals, draws of 0, and NaN in a normal, an
+    energy and an albedo. Layouts: "grid" (61, 97) contiguous lanes;
+    "compacted" (47, 128) lanes gathered in a random order; "bounce 0"
+    the ray origin, hit flag and probe radiance lane-constant (zero
+    strides); "strided" component planes, a slice of a wider tensor,
+    columns of a stacked tensor and every other bool; "flat" one lane
+    axis."""
+    from unitysspathtracingurp_tpu_torch.gbuffer import SurfaceData
+
+    rows, cols = (47, 128) if layout == "compacted" else (61, 97)
+    n = rows * cols
+    g = torch.Generator().manual_seed(31)
+
+    def unit(m):
+        v = torch.randn(m, 3, generator=g)
+        return v / v.norm(dim=-1, keepdim=True)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g)
+
+    ray_dir = unit(n)
+    normal = unit(n)
+    away = (normal * -ray_dir).sum(-1) < 0.0
+    normal = torch.where((away & (rand(n) < 0.85))[:, None], -normal, normal)
+    normal[3] = torch.tensor([1.0, 0.0, 0.0])
+    normal[4] = torch.tensor([0.6, 0.8, -0.0])
+    normal[5] = torch.tensor([0.0, -0.0, -1.0])
+    albedo = rand(n, 3)
+    albedo = torch.where((rand(n) < 0.1)[:, None], 0.0, albedo)
+    albedo[:, 1] = torch.where(rand(n) < 0.1, 1.0, albedo[:, 1])
+    smooth = rand(n)
+    near = torch.tensor([1.0, 0.96837723, 0.9683772, 0.9683773, 0.968377])
+    pick = rand(n) < 0.1
+    smooth = torch.where(pick, near[torch.randint(0, 5, (n,), generator=g)], smooth)
+    ior = torch.where(rand(n) < 0.35, -1.0, 1.0 + rand(n))
+    inside = torch.randint(0, 3, (n,), generator=g).float()
+    energy = rand(n, 3)
+    random = rand(n, 2)
+    random[6:8] = 0.0
+    normal[0, 1] = float("nan")
+    energy[1, 2] = float("nan")
+    albedo[2, 0] = float("nan")
+    hit = rand(n) > 0.2
+    hit[:8] = True
+    f = dict(
+        ray_dir=ray_dir, ray_pos=torch.randn(n, 3, generator=g), energy=energy, hit=hit,
+        normal=normal, albedo=albedo, specular=rand(n, 3) * 0.3, smoothness=smooth, ior=ior,
+        inside=inside, emission=rand(n, 3) * (rand(n, 1) < 0.1), hit_pos=torch.randn(n, 3, generator=g),
+        hit_dist=rand(n) * 6.0, env=rand(n, 3), random=random, roulette=rand(n))
+    cos_i = -(f["ray_dir"] * normal).sum(-1)
+    tir = hit & (ior != -1.0) & (inside != 1.0) & (1.0 - ior * ior * (1.0 - cos_i * cos_i) < 0.0)
+    assert int(tir.sum()) > 50 and bool((hit & (inside == 2.0)).any())
+    assert bool(((1.0 - smooth) ** 2 <= 0.001).any()) and bool((~hit).any())
+    if layout == "compacted":
+        idx = torch.randperm(n, generator=g)
+        f = {k: v[idx] for k, v in f.items()}
+    lanes = (n,) if layout == "flat" else (rows, cols)
+    f = {k: v.reshape(lanes + v.shape[1:]).to(dev) for k, v in f.items()}
+    if layout == "bounce 0":
+        f["ray_pos"] = f["ray_pos"][0, 0].expand(rows, cols, 3)
+        f["hit"] = torch.ones((), dtype=torch.bool, device=dev).expand(rows, cols)
+        f["env"] = f["env"][0, 0].expand(rows, cols, 3)
+    elif layout == "strided":
+        for k in ("normal", "albedo", "specular", "emission", "hit_pos", "random"):
+            f[k] = f[k].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+        wide = torch.zeros(rows, cols, 5, device=dev)
+        wide[..., 1:4] = f["ray_dir"]
+        f["ray_dir"] = wide[..., 1:4]
+        cols5 = torch.stack([f[k] for k in ("smoothness", "ior", "inside", "hit_dist",
+                                            "roulette")], dim=-1)
+        for i, k in enumerate(("smoothness", "ior", "inside", "hit_dist", "roulette")):
+            f[k] = cols5[..., i]
+        twice = torch.zeros(rows, cols * 2, dtype=torch.bool, device=dev)
+        twice[:, ::2] = f["hit"]
+        f["hit"] = twice[:, ::2]
+        assert not any(f[k].is_contiguous() for k in ("normal", "ray_dir", "ior", "hit"))
+    surf = SurfaceData(albedo=f["albedo"], specular=f["specular"], normal=f["normal"],
+                       emission=f["emission"], smoothness=f["smoothness"], ior=f["ior"],
+                       inside_object=f["inside"])
+    return (f["ray_dir"], f["ray_pos"], f["energy"], f["hit"], surf, f["hit_pos"],
+            f["hit_dist"], f["env"], f["random"], f["roulette"])
+
+
+@pytest.mark.parametrize("layout", BRDF_LAYOUTS)
+@pytest.mark.parametrize("disney", [False, True], ids=["lambert", "disney"])
+@pytest.mark.parametrize("refr", [False, True], ids=["opaque", "refraction"])
+def test_brdf_kernel_bit_exact(refr, disney, layout):
+    """B1 against its plain version on the same lanes, all four outputs
+    bit for bit, in each of its four instances and layouts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _brdf_args(layout, torch.device("cuda", 0))
+    before = LAUNCHES["brdf"]
+    got = pt.brdf_lanes(refr, disney, *args)
+    assert LAUNCHES["brdf"] == before + 1
+    want = pt.brdf_lanes_ref(refr, disney, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == args[0].shape
+        assert torch.equal(_bits(a), _bits(b))

@@ -55,7 +55,7 @@ from unitysspathtracingurp_tpu_torch.ops import depth_tiles as ttiles
 from unitysspathtracingurp_tpu_torch.ops import envprobe as tenv
 from unitysspathtracingurp_tpu_torch.ops import rng as trng
 from unitysspathtracingurp_tpu_torch.ops.fused_schedule import schedule_pack, schedule_pack_dual
-from unitysspathtracingurp_tpu_torch.ops.pathtrace import compact_indices
+from unitysspathtracingurp_tpu_torch.ops.pathtrace import brdf_lanes, compact_indices
 from unitysspathtracingurp_tpu_torch.ops.pathtrace_hiz import _link, resolve_rounds, resolve_rounds_dual
 from unitysspathtracingurp_tpu_torch.ops import temporal as ttemporal
 from unitysspathtracingurp_tpu_torch.ops.atrous import atrous_filter
@@ -437,6 +437,13 @@ _KERNEL_CALLS = {
         _meta(6, 128, dt=_I), _meta(18)),
     "atrous": lambda: atrous_filter(
         _meta(4, 4, 3), _meta_gbuffers(), _meta(4, 4, 3), _meta(4, 4), tconfig.PTConfig()),
+    "brdf": lambda: brdf_lanes(
+        True, True, _meta(4, 4, 3), _meta(4, 4, 3), _meta(4, 4, 3), _meta(4, 4, dt=_B),
+        tgbuffer.SurfaceData(albedo=_meta(4, 4, 3), specular=_meta(4, 4, 3),
+                             normal=_meta(4, 4, 3), emission=_meta(4, 4, 3),
+                             smoothness=_meta(4, 4), ior=_meta(4, 4),
+                             inside_object=_meta(4, 4)),
+        _meta(4, 4, 3), _meta(4, 4), _meta(4, 4, 3), _meta(4, 4, 2), _meta(4, 4)),
     "sampler": lambda: trng.sampler_draws(
         _meta(8, dt=torch.int64), _meta(8, dt=torch.int64), 99, 1, 2, trng.SOBOL_OWEN),
     "temporal": lambda: temporal_reproject(

@@ -102,6 +102,10 @@ _SIGNATURES = {
     # in Sobol-Owen mode), out; long long n; int mode; unsigned
     # frame_index, first; int count; stream.
     "sspt_sampler": [P] * 6 + [L, I, U, U, I] + [P],
+    # pointers: the field descriptors (16 x data, row, column and
+    # component strides, long long), out; ints rows, cols, refr, disney;
+    # stream.
+    "sspt_brdf": [P] * 2 + [I] * 4 + [P],
 }
 
 

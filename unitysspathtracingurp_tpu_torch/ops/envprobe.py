@@ -174,8 +174,8 @@ def sample_probe(probe: EnvProbe, direction, position_ws, mip_level: float = 0.0
     if frac > 0.0 and probe.mips:
         levels.append(_mip_texture(probe, lo + 1))
     if len(levels) == 1 and tuple(levels[0].shape[:2]) == (1, 1):
-        color = levels[0][0, 0].expand(direction.shape[:-1] + (3,))
-        return color * probe.hdr_mult
+        # One texel for every lane: a zero-stride view, no full-size copy.
+        return (levels[0][0, 0] * probe.hdr_mult).expand(direction.shape[:-1] + (3,))
     projected = box_projected_direction(direction, position_ws, probe)
     lookup = torch.where(probe.box_projection > 0.0, projected, direction)
     uv = oct_encode(lookup)

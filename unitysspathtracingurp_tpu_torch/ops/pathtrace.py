@@ -4,7 +4,9 @@ The counterpart of ``unitysspathtracingurp_tpu.ops.pathtrace`` (its
 ``trace_frame``, ``evaluate_brdf``, between-bounce lane compaction and
 the parity march ``ray_march``), with the ray march injected as
 ``march_fn``: the hiz march of ``ops/pathtrace_hiz.py`` or the parity
-march here. ``ray_march`` wraps kernel P1 (``csrc/ray_march.cu``);
+march here. ``brdf_lanes`` wraps kernel B1 (``csrc/brdf.cu``), each
+bounce's BRDF after its draws; ``brdf_lanes_ref`` is its plain version.
+``ray_march`` wraps kernel P1 (``csrc/ray_march.cu``);
 ``ray_march_ref`` is its plain PyTorch version, the masked fixed-trip
 loop of the JAX ``ray_march``. The parity march is the HLSL
 reference's own per-pixel shape and the oracle the hiz march is held
@@ -20,6 +22,7 @@ advances the draw counter at every potential draw site.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -310,12 +313,30 @@ def evaluate_brdf(cfg, variants, rng, ray_dir, ray_pos, energy, hit, surf, hit_p
     The refraction lobe (ref :282-310) exists only under the refraction
     variants: elsewhere no decode produces an ior, its probability is 0
     and the other lobes' arithmetic is the same. The RNG draws are the
-    same (draw2, then draw) either way."""
+    same (draw2, then draw) either way. After the draws and the probe
+    lookup, ``brdf_lanes`` evaluates the lanes (kernel B1 on the card)."""
+    random, rng = draw2(rng)
+    roulette, rng = draw(rng)
+    env = sample_reflection_probes(probes, ray_dir, primary_pos, mip_level=1.0)
+    direction, position, new_energy, radiance = brdf_lanes(
+        variants.support_refraction, cfg.use_disney_diffuse, ray_dir, ray_pos, energy, hit,
+        surf, hit_pos, hit_dist, env, random, roulette)
+    return BRDFResult(direction=direction, position=position, energy=new_energy,
+                      radiance=radiance, rng=rng)
+
+
+def brdf_lanes_ref(refr: bool, disney: bool, ray_dir, ray_pos, energy, hit, surf, hit_pos,
+                   hit_dist, env, random, roulette):
+    """B1's plain version: ``evaluate_brdf`` after its draws (``random``
+    (..., 2), ``roulette``) and its probe lookup (``env`` (..., 3)), with
+    the refraction lobe under ``refr`` and Burley diffuse under
+    ``disney``. Returns (direction, position, energy, radiance), each
+    (..., 3)."""
     view = -ray_dir
     ndotv = brdf.clamp_ndotv(dot3(surf.normal, view))
     spec_p = brdf.reflectivity_specular(torch.clamp(surf.specular, min=0.04))
     refract_p = None
-    if variants.support_refraction:
+    if refr:
         do_refraction = surf.ior != -1.0
         refract_p = torch.where(do_refraction, brdf.reflectivity_specular(surf.albedo),
                                 torch.zeros_like(spec_p))
@@ -325,10 +346,7 @@ def evaluate_brdf(cfg, variants, rng, ray_dir, ray_pos, energy, hit, surf, hit_p
         diff_p = 1.0 - spec_p
     perceptual_roughness = 1.0 - surf.smoothness
     roughness = perceptual_roughness * perceptual_roughness
-
-    random, rng = draw2(rng)
     frame = brdf.get_local_frame(surf.normal)
-    roulette, rng = draw(rng)
 
     spec_l, vdoth_s, _, weight_over_pdf = brdf.importance_sample_ggx_pdf(
         random, view, frame, roughness, ndotv
@@ -339,7 +357,7 @@ def evaluate_brdf(cfg, variants, rng, ray_dir, ray_pos, energy, hit, surf, hit_p
         / torch.clamp(spec_p, min=1e-12)[..., None]
     )
     diff_l, ndotl_d, w_lambert = brdf.importance_sample_lambert(random, frame)
-    if cfg.use_disney_diffuse:
+    if disney:
         ldotv = saturate(dot3(diff_l, view))
         diffuse_brdf = surf.albedo * brdf.disney_diffuse_no_pi(
             ndotv, ndotl_d, ldotv, perceptual_roughness
@@ -389,15 +407,63 @@ def evaluate_brdf(cfg, variants, rng, ray_dir, ray_pos, energy, hit, surf, hit_p
         scale = torch.where(sel_refract[..., None], refraction_energy_scale, scale)
     new_energy = energy * scale
 
-    env = sample_reflection_probes(probes, ray_dir, primary_pos, mip_level=1.0)
     hit3 = hit[..., None]
-    return BRDFResult(
-        direction=torch.where(hit3, new_dir, ray_dir),
-        position=torch.where(hit3, hit_pos, ray_pos),
-        energy=torch.where(hit3, new_energy, torch.zeros_like(new_energy)),
-        radiance=torch.where(hit3, surf.emission, env),
-        rng=rng,
+    return (torch.where(hit3, new_dir, ray_dir), torch.where(hit3, hit_pos, ray_pos),
+            torch.where(hit3, new_energy, torch.zeros_like(new_energy)),
+            torch.where(hit3, surf.emission, env))
+
+
+def brdf_lanes(refr: bool, disney: bool, ray_dir, ray_pos, energy, hit, surf, hit_pos,
+               hit_dist, env, random, roulette):
+    """``brdf_lanes_ref``'s outputs. CPU tensors: the plain version. CUDA
+    tensors: one launch of kernel B1 (``csrc/brdf.cu``), or an
+    exception; there is no fallback. The lanes are ``ray_dir``'s leading
+    axes; every input broadcasts to them and is read through its own
+    strides (no copy for one or two lane axes), f32, the hit flag bool. ``surf.ior``,
+    ``surf.inside_object`` and ``hit_dist`` are read only under
+    ``refr``. The four outputs are views of one (4, lanes, 3) buffer."""
+    if ray_dir.device.type == "cpu":
+        return brdf_lanes_ref(refr, disney, ray_dir, ray_pos, energy, hit, surf, hit_pos,
+                              hit_dist, env, random, roulette)
+    from ..kernels.build import LAUNCHES, check, load_library, stream_of
+
+    lib = load_library()
+    lanes = ray_dir.shape[:-1]
+    dev = ray_dir.device
+    # B1's fields in its order (csrc/brdf.cu Field), each with its
+    # component count (0: one value a lane).
+    fields = (
+        (ray_dir, 3), (ray_pos, 3), (energy, 3), (hit, 0), (surf.normal, 3),
+        (surf.albedo, 3), (surf.specular, 3), (surf.smoothness, 0),
+        (surf.ior if refr else None, 0), (surf.inside_object if refr else None, 0),
+        (surf.emission, 3), (hit_pos, 3), (hit_dist if refr else None, 0), (env, 3),
+        (random, 2), (roulette, 0),
     )
+    cols = lanes[-1] if lanes else 1
+    rows = lanes.numel() // cols if cols else 0
+    desc, held = [], []  # held: a reshaped copy lives until the launch is queued
+    for t, comps in fields:
+        if t is None:
+            desc += (0, 0, 0, 0)
+            continue
+        want = torch.bool if t is hit else torch.float32
+        if t.device != dev or t.dtype != want:
+            raise RuntimeError(f"brdf_lanes: needs {want} CUDA tensors on {dev}, got {t.dtype} "
+                               f"on {t.device}")
+        comp = (comps,) if comps else ()
+        t = t.expand(lanes + comp)
+        if len(lanes) != 2:
+            t = t.reshape((rows, cols) + comp)
+        held.append(t)
+        st = t.stride()
+        desc += (t.data_ptr(), st[0], st[1], st[2] if comps else 0)
+    out = torch.empty((4,) + lanes + (3,), dtype=torch.float32, device=dev)
+    if rows * cols:
+        rc = lib.sspt_brdf((ctypes.c_longlong * len(desc))(*desc), out.data_ptr(), rows, cols,
+                           int(refr), int(disney), stream_of(out))
+        check(rc, "brdf")
+        LAUNCHES["brdf"] += 1
+    return out[0], out[1], out[2], out[3]
 
 
 def compact_indices(alive_flat, cap_n: int):
@@ -525,7 +591,7 @@ def trace_frame(gb, cam, probes, settings, cfg, variants, frame_index, march_fn,
             ray_dir=-view_dir,
             ray_pos=cam.position.expand(h, w, 3),
             energy=energy,
-            hit=torch.ones((h, w), dtype=torch.bool, device=dev),
+            hit=torch.ones((), dtype=torch.bool, device=dev).expand(h, w),
             surf=primary_surf,
             hit_pos=position_ws,
             hit_dist=primary_dist,
